@@ -1,0 +1,72 @@
+"""Weights carried between the JAX package and the port.
+
+The JAX CNN keeps its params as a nested dict of arrays in its own layout;
+the port keeps a flat dict of PyTorch-layout tensors. Three differences:
+
+  conv weights   HWIO (JAX)          ↔ OIHW (port)
+  fc weights     (in, out)           ↔ (out, in)
+  fc1 inputs     NHWC-flatten rows   ↔ NCHW-flatten columns: the JAX CNN
+                 in (H, W, C) order     flattens its (B, 4, 4, 20) maps in
+                                        HWC order, the port its (B, 20, 4, 4)
+                                        maps in CHW order
+
+Both directions take and give numpy-convertible arrays, never JAX objects:
+``params_from_jax`` accepts the JAX tree after ``np.asarray`` on its leaves
+(or the jax arrays themselves, which numpy converts), ``params_to_jax``
+returns a nested dict of numpy arrays.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def _fc1_rows_to_cols(w: np.ndarray, channels: int) -> np.ndarray:
+    """JAX fc1 (H·W·C, out) in HWC row order → port (out, C·H·W)."""
+    hw = w.shape[0] // channels
+    side = int(round(hw ** 0.5))
+    w = w.reshape(side, side, channels, -1).transpose(2, 0, 1, 3)
+    return w.reshape(channels * hw, -1).T
+
+
+def _fc1_cols_to_rows(w: np.ndarray, channels: int) -> np.ndarray:
+    """Port fc1 (out, C·H·W) → JAX (H·W·C, out) in HWC row order."""
+    hw = w.shape[1] // channels
+    side = int(round(hw ** 0.5))
+    w = w.T.reshape(channels, side, side, -1).transpose(1, 2, 0, 3)
+    return w.reshape(hw * channels, -1)
+
+
+def params_from_jax(tree, device="cpu") -> Dict[str, torch.Tensor]:
+    """Nested JAX CNN params ({layer: {"w", "b"}}) → the port's flat dict
+    on ``device``."""
+    t = {layer: {k: np.asarray(v) for k, v in leaves.items()}
+         for layer, leaves in tree.items()}
+    c2 = t["conv2"]["w"].shape[-1]
+    out = {
+        "conv1.w": t["conv1"]["w"].transpose(3, 2, 0, 1),
+        "conv2.w": t["conv2"]["w"].transpose(3, 2, 0, 1),
+        "fc1.w": _fc1_rows_to_cols(t["fc1"]["w"], c2),
+        "fc2.w": t["fc2"]["w"].T,
+    }
+    for layer in t:
+        out[f"{layer}.b"] = t[layer]["b"]
+    return {k: torch.from_numpy(np.array(v, order="C")).to(device)
+            for k, v in sorted(out.items())}
+
+
+def params_to_jax(params: Dict[str, torch.Tensor]
+                  ) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's flat dict → nested numpy params in the JAX layout."""
+    p = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    c2 = p["conv2.w"].shape[0]
+    w = {
+        "conv1": p["conv1.w"].transpose(2, 3, 1, 0),
+        "conv2": p["conv2.w"].transpose(2, 3, 1, 0),
+        "fc1": _fc1_cols_to_rows(p["fc1.w"], c2),
+        "fc2": p["fc2.w"].T,
+    }
+    return {layer: {"b": p[f"{layer}.b"], "w": np.ascontiguousarray(w[layer])}
+            for layer in sorted(w)}

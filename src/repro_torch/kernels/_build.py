@@ -1,0 +1,185 @@
+"""Build, load and call the port's CUDA kernels.
+
+The sources under ``repro_torch/csrc/`` compile with plain ``nvcc`` for
+``sm_90a`` into one shared library with a C interface, loaded through
+``ctypes``. The library is built at first use into
+``build/repro_torch_kernels/<hash>/`` at the root of the checkout, keyed by
+a hash of the sources and the compiler flags, so an edited source never
+loads a stale build. Each ``.cu`` compiles in its own ``nvcc`` process, all
+started together, and one more ``nvcc`` links the objects. Nothing but the
+repository's sources and the CUDA toolkit goes into the build.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``launch`` raises on a non-zero code. Nothing here
+runs at import time: the CPU tests import every module of the package.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+
+# rows of the update matrix per W-split of a column reduction (a block's
+# weights/keep slice sits in shared memory: at most 256, see common.cuh)
+SPLIT_ROWS = 128
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "repro_trust_score": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    "repro_trust_agg": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
+    "repro_fused_async_agg": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
+                              _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None   # wall time of this process's build
+build_log = ""                          # nvcc/ptxas output of that build
+
+
+def splits(W: int) -> int:
+    """Number of W-splits (rows of the partials buffer) for W rows."""
+    return -(-W // SPLIT_ROWS)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "librepro_torch_kernels.so"
+
+
+def build() -> Path:
+    """Compile the library if this source hash has none yet; return it."""
+    global build_seconds, build_log
+    lib = library_path()
+    if lib.exists():
+        return lib
+    out = lib.parent
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.monotonic()
+    procs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        # per-process object names: concurrent builders never share a file
+        obj = out / f"{src.stem}-{os.getpid()}.o"
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+             str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for src, _, p in procs:
+        text, _ = p.communicate()
+        logs.append(f"== {src.name}\n{text}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+    tmp = out / f"tmp-{os.getpid()}.so"
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+         *(str(obj) for _, obj, _ in procs)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, lib)                 # atomic: never a half-written .so
+    build_seconds = time.monotonic() - t0
+    build_log = "\n".join(logs)
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the library once per process."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry ``name`` with ``args`` followed by the current stream
+    of ``device``; raise if the launch reported an error."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+# -- argument checks shared by the wrappers ------------------------------------
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_updates(updates: torch.Tensor) -> None:
+    """The (W, D) update matrix every trust kernel takes."""
+    if updates.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"updates on unsupported device {updates.device}")
+    if updates.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"updates dtype {updates.dtype}: the kernels take "
+                        f"float32 or bfloat16")
+    if updates.ndim != 2 or updates.shape[0] < 1 or updates.shape[1] < 1:
+        raise ValueError(f"updates must be a non-empty (W, D) matrix, got "
+                         f"shape {tuple(updates.shape)}")
+    if updates.device.type == "cuda" and not updates.is_contiguous():
+        raise ValueError("updates must be contiguous")
+
+
+def check_operand(x: torch.Tensor, name: str, shape: tuple,
+                  like: torch.Tensor) -> None:
+    """A float32 operand of a kernel: on ``like``'s device, this shape,
+    contiguous on the card."""
+    if x.device != like.device:
+        raise ValueError(f"{name} on {x.device}, updates on {like.device}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} shape {tuple(x.shape)} != {tuple(shape)}")
+    if x.device.type == "cuda":
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())

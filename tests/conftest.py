@@ -33,6 +33,11 @@ except ModuleNotFoundError:
     install()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips itself without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,86 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, it
+runs on the card unless asked for the CPU, and its kernel wrappers run the
+plain version for CPU tensors."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro_torch.kernels import fused_round, ref, trust_agg, trust_score
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _imported(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_imports_neither_jax_nor_repro():
+    assert len(PORT_FILES) > 20
+    for path in PORT_FILES:
+        for mod in _imported(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_protocol_imports_with_jax_and_repro_blocked():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None; "
+            "import repro_torch.core.protocol, repro_torch.convert; "
+            "print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_run_on_cuda_unless_asked():
+    from repro_torch.configs.base import FederationConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.fl_step import make_fl_round
+    from repro_torch.core.protocol import SDFLBProtocol
+    args = (get_config("paper-net"), FederationConfig(), TrainConfig())
+    if torch.cuda.is_available():
+        proto = SDFLBProtocol(*args)
+        assert proto.node.device.type == "cuda"
+        proto.finalize()
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SDFLBProtocol(*args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_fl_round(*args)
+    proto = SDFLBProtocol(*args, device="cpu")
+    assert proto.node.device.type == "cpu"
+    proto.finalize()
+
+
+def test_wrappers_on_cpu_return_the_plain_version():
+    gen = torch.Generator().manual_seed(0)
+    u = torch.randn((5, 300), generator=gen)
+    w, keep = torch.rand(5, generator=gen), (torch.rand(5) > 0.5).float()
+    pending = torch.randn((5, 300), generator=gen)
+    before = (trust_score.trust_score_stats.launches,
+              trust_agg.trust_agg.launches,
+              fused_round.fused_async_agg.launches)
+    for g, e in zip(trust_score.trust_score_stats(u), ref.trust_score_ref(u)):
+        torch.testing.assert_close(g, e, rtol=0, atol=0)
+    torch.testing.assert_close(trust_agg.trust_agg(u, w),
+                               ref.trust_agg_ref(u, w), rtol=0, atol=0)
+    for g, e in zip(fused_round.fused_async_agg(u, pending, w, keep),
+                    ref.fused_async_agg_ref(u, pending, w, keep)):
+        torch.testing.assert_close(g, e, rtol=0, atol=0)
+    # the plain path launches nothing
+    assert before == (trust_score.trust_score_stats.launches,
+                      trust_agg.trust_agg.launches,
+                      fused_round.fused_async_agg.launches)

@@ -1,0 +1,124 @@
+"""The port's trust kernels K1 (statistics), K2 (sync aggregate) and K3
+(async aggregate and flush) against the JAX package's Pallas kernels, run in
+interpret mode, and against ``repro.kernels.ref``.
+
+On the CPU each wrapper runs its plain PyTorch version; the CUDA kernels
+themselves are checked against the same plain versions on the card
+(``tests/test_torch_cuda.py`` and ``chip_smoke.py``). Inputs are made from a
+seed with numpy and handed to both packages. Tolerances are those of
+``tests/test_kernels.py``: f32 2e-5 for the aggregates and 1e-4 (times D,
+absolute) for the statistics, bf16 2e-2 and 5e-2 — the two frameworks sum
+in different orders.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import fused_round as jfused
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build, fused_round, ref, trust_agg, \
+    trust_score
+
+jax.config.update("jax_enable_x64", False)
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _inputs(W, D, dtype, seed=0):
+    rng = np.random.default_rng(seed * 7919 + W * 31 + D)
+    u = rng.standard_normal((W, D)).astype(np.float32)
+    pending = rng.standard_normal((W, D)).astype(np.float32)
+    weights = rng.random(W).astype(np.float32)
+    keep = (rng.random(W) > 0.5).astype(np.float32)
+    jdt, tdt = DTYPES[dtype]
+    ju = jnp.asarray(u).astype(jdt)
+    tu = torch.from_numpy(u).to(tdt)
+    return u, ju, tu, pending, weights, keep
+
+
+def _np(x):
+    return np.asarray(x, np.float32) if not isinstance(x, torch.Tensor) \
+        else x.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1, 127, 2053])
+@pytest.mark.parametrize("W", [1, 2, 16, 33])
+def test_trust_kernels_match_pallas_and_ref(W, D, dtype):
+    _, ju, tu, pending, weights, keep = _inputs(W, D, dtype)
+    f32 = dtype == "float32"
+    agg_tol = 2e-5 if f32 else 2e-2
+    stat_tol = 1e-4 if f32 else 5e-2
+
+    # K1: statistics
+    got = trust_score.trust_score_stats(tu)
+    pallas = jops._trust_score_stats(ju, interpret=True)
+    oracle = jref.trust_score_ref(ju)
+    for g, p, o in zip(got, pallas, oracle):
+        for expect in (p, o):
+            np.testing.assert_allclose(_np(g), _np(expect), rtol=stat_tol,
+                                       atol=stat_tol * D)
+
+    # K2: sync aggregate
+    tw = torch.from_numpy(weights)
+    got = trust_agg.trust_agg(tu, tw)
+    for expect in (jops._trust_agg(ju, jnp.asarray(weights), interpret=True),
+                   jref.trust_agg_ref(ju, jnp.asarray(weights))):
+        np.testing.assert_allclose(_np(got), _np(expect), rtol=agg_tol,
+                                   atol=agg_tol)
+
+    # K3: async aggregate + flush; the port's pending is unpadded (W, D),
+    # the TPU kernel's is padded to its tile grid
+    agg, newp = fused_round.fused_async_agg(
+        tu, torch.from_numpy(pending), tw, torch.from_numpy(keep))
+    assert newp.shape == (W, D) and newp.dtype == torch.float32
+    wp, dp = jfused.pending_shape(W, D)
+    jpend = jnp.zeros((wp, dp), jnp.float32).at[:W, :D].set(pending)
+    jagg, jnewp = jfused.fused_async_agg_kernel(
+        ju, jpend, jnp.asarray(weights), jnp.asarray(keep), interpret=True)
+    np.testing.assert_allclose(_np(agg), _np(jagg), rtol=agg_tol,
+                               atol=agg_tol)
+    np.testing.assert_allclose(_np(newp), _np(jnewp)[:W, :D], rtol=agg_tol,
+                               atol=agg_tol)
+    # the JAX padding carries nothing the port drops
+    assert not np.asarray(jnewp)[W:].any()
+    assert not np.asarray(jnewp)[:, D:].any()
+    ragg, rnewp = jref.fused_async_agg_ref(ju, jnp.asarray(pending),
+                                           jnp.asarray(weights),
+                                           jnp.asarray(keep))
+    np.testing.assert_allclose(_np(agg), _np(ragg), rtol=agg_tol,
+                               atol=agg_tol)
+    np.testing.assert_allclose(_np(newp), _np(rnewp), rtol=agg_tol,
+                               atol=agg_tol)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    u = torch.zeros((4, 8))
+    with pytest.raises(TypeError):
+        trust_score.trust_score_stats(u.double())
+    with pytest.raises(ValueError):
+        trust_score.trust_score_stats(torch.zeros((0, 8)))
+    with pytest.raises(ValueError):
+        trust_agg.trust_agg(u, torch.zeros(3))
+    with pytest.raises(ValueError):
+        fused_round.fused_async_agg(u, torch.zeros((4, 7)), torch.zeros(4),
+                                    torch.zeros(4))
+
+
+def test_hbm_accounting():
+    """The port's chain streams the update matrix three times (K1's two
+    passes, then K2 or K3), against the TPU chain's two."""
+    W, D = 10240, 21840
+    for dt in (torch.float32, torch.bfloat16):
+        for am in (False, True):
+            assert fused_round.update_passes(W, D, dt, async_mode=am) == 3.0
+    k1 = trust_score.hbm_bytes(W, D, 4)
+    assert k1["update_read"] == 2 * W * D * 4
+    assert k1["minimum"] < k1["total"]
+    assert _build.splits(W) == -(-W // _build.SPLIT_ROWS)
+    assert _build.SPLIT_ROWS <= 256          # kMaxRows in csrc/common.cuh
+
