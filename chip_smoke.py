@@ -28,11 +28,33 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   torch.profiler: device time by kernel, device busy share
   determinism     ``protocol_sync`` again with the same seed: the block
                   hashes must be identical
+  swa_kernel      K5 swa_decode against its plain version on the card at
+                  danube's decode shape (B 4, H 32, KV 8, hd 80, window
+                  4096, S 5184 = no multiple of the kernel's chunk), f32 and
+                  bf16, cur below, at and past the window, plus two small
+                  ragged cases (G 1 and G 5 over KV 1); times at the serve
+                  shape with the caches cold in L2, the byte bound, and one
+                  ``scaled_dot_product_attention`` call on pre-sliced
+                  windows as the library yardstick; the tolerance must
+                  reject K5 run with the window one slot off or its oldest
+                  chunk dropped
+  serve_parity    ``launch.serve.serve`` on the card against the same on the
+                  CPU: h2o-danube-1.8b at full width, cut to 2 layers and a
+                  256-slot window, batch 2, a 320-token prompt and 4 greedy
+                  tokens, in f32 and bf16: prefill logits, decode logits and
+                  tokens
+  serve           the second main path: h2o-danube-1.8b at full size (24
+                  layers, seeded random weights) serving batch 4, a
+                  5120-token prompt and 64 tokens, so decode runs past the
+                  4096-slot window; K5 must launch 24 x 63 times; a second
+                  same-seed run must emit the same tokens; then four decode
+                  steps under torch.profiler
 
 Then it prints the card's ``nvidia-smi`` line, one ``{"kernels": [...]}``
-line (each kernel's launches on the main path, its error against the plain
-version, its time, the plain version's time, its bound and, for K2, the
-time of ``torch.mv`` as the library yardstick), and last
+line (each kernel's launches on its main path, its error against the plain
+version, its time, the plain version's time, its bound and the time of a
+library call where one computes the same function: ``torch.mv`` for K2,
+``scaled_dot_product_attention`` for K5), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without the last line; so does a machine without CUDA.
 """
@@ -58,9 +80,29 @@ REPS = 30                        # timed launches per measurement (median)
 # per output; both read the same inputs and sum in f32 in different orders
 RTOL = 1e-4
 
-# published peaks (NVIDIA data sheets): HBM bytes/s and non-tensor f32 FLOP/s
+# published peaks (NVIDIA data sheets): HBM bytes/s, non-tensor f32 FLOP/s
 PEAKS = [("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
          ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12)]
+
+ARCH = "h2o-danube-1.8b"
+SERVE = dict(batch=4, prompt_len=5120, gen=64)   # prompt: 5 x kv_chunk 1024
+SWA_WINDOW = 4096                # danube's window; its decode shape below
+SWA_SHAPE = dict(B=4, H=32, KV=8, hd=80)
+SWA_S = SERVE["prompt_len"] + SERVE["gen"]       # the serve's cache length
+SWA_MAIN_CUR = SWA_S - 2         # the serve's last decode step
+SWA_ROT = 4                      # layers of cache the timing rotates over
+# K5 vs its plain version, both f32 inside, held elementwise to the plain
+# version's f32 result before any rounding to q's dtype:
+# |kernel - plain_f32| <= SWA_ATOL + SWA_RTOL[dtype] * |plain_f32|. In f32
+# they differ in summation order only (measured <= 8e-7); in bf16 the kernel
+# also rounds its result once, by at most half a bf16 step (2^-8 of the
+# value). A window one slot off or a dropped chunk fails it (planted_faults).
+SWA_ATOL = 1e-5
+SWA_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+# serve on the card vs on the CPU, absolute on logits (|logit| up to ~5):
+# f32 sums of 2560-6912 terms in other orders; bf16 rounds activations at
+# other places (cuBLAS and the CPU's kernels) through two layers
+PARITY_TOL = {"float32": 1e-3, "bfloat16": 0.125}
 
 
 def check(ok, what="check failed"):
@@ -80,6 +122,7 @@ def smi(query):
 
 
 def peaks(name):
+    """(HBM bytes/s, f32 FLOP/s outside the tensor cores) of the card."""
     for key, bw, f32 in PEAKS:
         if key in name:
             return bw, f32
@@ -273,7 +316,10 @@ def phase_parity():
 
 
 def counters():
-    return {k["name"]: k["wrapper"] for k in kernel_table()}
+    from repro_torch.kernels import swa_decode
+    out = {k["name"]: k["wrapper"] for k in kernel_table()}
+    out["swa_decode"] = swa_decode.swa_decode
+    return out
 
 
 def reset_counts():
@@ -285,14 +331,18 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def device_profile(prof, wall_s):
+TRUST_KERNELS = ("split_colsum", "finish_colsum", "row_stats")
+
+
+def device_profile(prof, wall_s, ours=TRUST_KERNELS, label="trust_kernels_s"):
     """Device activity (kernels, copies, sets) from a torch.profiler run
     over ``wall_s`` seconds of host time: the busy time (the union of the
-    activities' intervals), its share of the round, the trust kernels'
-    time and the ten largest activities by name, each as [name, summed
-    microseconds, count]. The sum by name can exceed the busy time where
-    cuDNN spreads work over its own streams. CUPTI's own bookkeeping
-    entries are left out."""
+    activities' intervals), its share of the window, the time of the
+    kernels whose names contain one of ``ours`` (under ``label``) and the
+    ten largest activities by name, each as [name, summed microseconds,
+    count]. The sum by name can exceed the busy time where cuDNN spreads
+    work over its own streams. CUPTI's own bookkeeping entries are left
+    out."""
     from torch.autograd import DeviceType
     acts = [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and e.name not in ("Activity Buffer Request", "Buffer Flush")]
@@ -305,13 +355,12 @@ def device_profile(prof, wall_s):
     for e in acts:
         t, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
-    trust_us = sum(t for k, (t, _) in by_name.items()
-                   if any(n in k for n in ("split_colsum", "finish_colsum",
-                                           "row_stats")))
+    ours_us = sum(t for k, (t, _) in by_name.items()
+                  if any(n in k for n in ours))
     top = sorted(by_name.items(), key=lambda r: -r[1][0])[:10]
-    return {"round_wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+    return {"wall_s": wall_s, "device_busy_s": busy_us / 1e6,
             "busy_share": busy_us / 1e6 / wall_s,
-            "trust_kernels_s": trust_us / 1e6, "activities": len(acts),
+            label: ours_us / 1e6, "activities": len(acts),
             "top_device_us": [[k[:90], t, n] for k, (t, n) in top]}
 
 
@@ -394,7 +443,7 @@ def main_path(phase, async_mode):
     counts = read_counts()
     rec["launches"] = counts
     want = {"trust_score": 3, "trust_agg": 0 if async_mode else 3,
-            "fused_async_agg": 3 if async_mode else 0}
+            "fused_async_agg": 3 if async_mode else 0, "swa_decode": 0}
     if counts != want:
         raise AssertionError(f"{phase}: kernel launches {counts}, "
                              f"expected {want}")
@@ -431,6 +480,239 @@ def phase_profile():
     emit(out)
 
 
+def _rotating(fn, n):
+    """A call that runs ``fn(0)``, ``fn(1)``, ... ``fn(n - 1)``, ``fn(0)``
+    ...: timed through it, each launch reads another layer's cache, so the
+    window (42 MB in bf16) is cold in the 50 MB L2, as it is in a decode
+    step whose other layers ran in between."""
+    state = [0]
+
+    def call():
+        fn(state[0] % n)
+        state[0] += 1
+    return call
+
+
+def swa_excess(got, want32, dtype):
+    """Largest amount by which ``got`` lies outside K5's tolerance around
+    the plain f32 result: > 0 fails."""
+    tol = SWA_ATOL + SWA_RTOL[dtype] * want32.abs()
+    return float(((got.float() - want32).abs() - tol).max())
+
+
+def swa_case(K5, name, B, H, KV, hd, S, window, cur, dtype, gen, timed):
+    """K5 on layer 0 of a stacked (SWA_ROT, B, S, KV, hd) cache against its
+    plain version; with ``timed``, also the CUDA-event times of the kernel,
+    the plain version and SDPA on pre-sliced windows, the bound, and the
+    check run on planted faults: K5 called with the window one slot short,
+    one slot long, or without its oldest chunk must fail it."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    rot = SWA_ROT if timed else 1
+    q = torch.randn((B, H, hd), generator=gen, device=dev).to(dt)
+    kc, vc = (torch.randn((rot, B, S, KV, hd), generator=gen,
+                          device=dev).to(dt) for _ in range(2))
+    got = K5.swa_decode(q, kc[0], vc[0], cur, window)
+    torch.cuda.synchronize()
+    want = K5.swa_decode_ref(q, kc[0], vc[0], cur, window)
+    want32 = K5.swa_decode_ref(q.float(), kc[0].float(), vc[0].float(), cur,
+                               window)
+    check(got.shape == want.shape and got.dtype == q.dtype)
+    check(torch.isfinite(got).all())
+    err = float((got.float() - want.float()).abs().max())
+    excess = swa_excess(got, want32, dtype)
+    if excess > 0:
+        raise AssertionError(f"swa_decode B={B} H={H} KV={KV} hd={hd} S={S} "
+                             f"cur={cur} {dtype}: max|kernel - plain| = "
+                             f"{err}, beyond the tolerance by {excess}")
+    row = {"B": B, "H": H, "KV": KV, "hd": hd, "S": S, "window": window,
+           "cur": cur, "dtype": dtype, "max_abs_err": err,
+           "max_err_vs_plain_f32": float((got.float() - want32).abs().max())}
+    if not timed:
+        return row
+    faults = {}
+    for fault, w in (("window_minus_1", window - 1),
+                     ("window_plus_1", window + 1),
+                     ("oldest_chunk_dropped", window - K5.CHUNK)):
+        bad = K5.swa_decode(q, kc[0], vc[0], cur, w)
+        faults[fault] = {"max_abs_err": float(
+            (bad.float() - want.float()).abs().max()),
+            "excess": swa_excess(bad, want32, dtype)}
+        check(faults[fault]["excess"] > 0,
+              f"K5's tolerance passes a planted fault: {fault} {dtype}")
+    row["planted_faults"] = faults
+    del want32, bad
+    bw, peak = peaks(name)
+    hbm = K5.hbm_bytes(B, H, KV, hd, window, cur, q.element_size())
+    t_bytes = hbm["minimum"] / bw * 1e3
+    t_ops = K5.flops(B, H, hd, window, cur) / peak * 1e3
+    lo = max(cur - window + 1, 0)
+    kw, vw = ([c[r][:, lo:cur + 1].transpose(1, 2).contiguous()
+               for r in range(rot)] for c in (kc, vc))
+    q4 = q[:, :, None, :]
+    lib = F.scaled_dot_product_attention(q4, kw[0], vw[0], enable_gqa=True)
+    row.update({
+        "ms": time_ms(_rotating(
+            lambda r: K5.swa_decode(q, kc[r], vc[r], cur, window), rot)),
+        "plain_ms": time_ms(_rotating(
+            lambda r: K5.swa_decode_ref(q, kc[r], vc[r], cur, window), rot)),
+        "library_ms": time_ms(_rotating(
+            lambda r: F.scaled_dot_product_attention(q4, kw[r], vw[r],
+                                                     enable_gqa=True), rot)),
+        "library_max_abs_err": float(
+            (lib[:, :, 0].float() - want.float()).abs().max()),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "min_bytes": hbm["minimum"], "streamed_bytes": hbm["total"],
+        "window_slots": cur - lo + 1})
+    return row
+
+
+def phase_swa_kernel(name):
+    """K5 against swa_decode_ref on the card; returns the row at the serve
+    shape (bf16, the serve's last decode step) for the kernels line."""
+    from repro_torch.kernels import swa_decode as K5
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        for cur in (100, SWA_WINDOW - 1, SWA_WINDOW, SWA_MAIN_CUR):
+            cases.append(swa_case(K5, name, **SWA_SHAPE, S=SWA_S,
+                                  window=SWA_WINDOW, cur=cur, dtype=dtype,
+                                  gen=gen, timed=cur == SWA_MAIN_CUR))
+            torch.cuda.empty_cache()
+        for B, H, KV, hd, S, window, cur in ((2, 1, 1, 80, 37, 16, 36),
+                                             (3, 5, 1, 32, 300, 64, 0)):
+            cases.append(swa_case(K5, name, B, H, KV, hd, S, window, cur,
+                                  dtype, gen, timed=False))
+    emit({"phase": "swa_kernel", "atol": SWA_ATOL, "rtol": SWA_RTOL,
+          "chunk": K5.CHUNK,
+          "cases": cases})
+    return next(c for c in cases if c["dtype"] == "bfloat16"
+                and c["cur"] == SWA_MAIN_CUR)
+
+
+def phase_serve_parity():
+    """The port's serve on the card against the same on the CPU, at full
+    width with the cuts listed in the phase line."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    cuts = {"num_layers": 2, "window": 256}
+    kw = dict(batch=2, prompt_len=320, gen=4, seed=3)
+    out = {"phase": "serve_parity", "arch": ARCH, "cuts": cuts, **kw,
+           "tol": PARITY_TOL}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(ARCH).replace(dtype=dtype, **cuts)
+        params = api.init(cfg, torch.Generator().manual_seed(3),
+                          torch.device("cpu"))
+        cpu = serve(cfg, device="cpu", params=params, **kw)
+        reset_counts()
+        card = serve(cfg, device="cuda",
+                     params={k: v.cuda() for k, v in params.items()}, **kw)
+        launches = read_counts()["swa_decode"]
+        check(launches == cfg.num_layers * (kw["gen"] - 1), launches)
+        lg_cpu, lg_card = cpu.logits.float(), card.logits.float().cpu()
+        check(torch.isfinite(lg_card).all())
+        same = (cpu.tokens == card.tokens.cpu()).all(dim=0)
+        # greedy tokens may part only at a near tie of the CPU's top two
+        # logits; logits are compared up to and including that step
+        upto = int(same.float().argmin()) if not same.all() else kw["gen"]
+        if upto < kw["gen"]:
+            top2 = lg_cpu[:, upto].topk(2, dim=-1).values
+            margin = float((top2[:, 0] - top2[:, 1]).min())
+            check(margin <= 2 * PARITY_TOL[dtype],
+                  f"{dtype}: tokens part at step {upto}, margin {margin}")
+        diff = (lg_card - lg_cpu)[:, :upto + 1].abs()
+        rec = {"prefill_logits_err": float(diff[:, 0].max()),
+               "decode_logits_err": (float(diff[:, 1:].max())
+                                     if diff.shape[1] > 1 else None),
+               "tokens_equal": bool(same.all()),
+               "first_token_step_apart": None if same.all() else upto,
+               "k5_launches": launches,
+               "logits_absmax": float(lg_cpu.abs().max())}
+        check(rec["prefill_logits_err"] <= PARITY_TOL[dtype], rec)
+        check(rec["decode_logits_err"] is None
+              or rec["decode_logits_err"] <= PARITY_TOL[dtype], rec)
+        out[dtype] = rec
+        del params, cpu, card
+        torch.cuda.empty_cache()
+    emit(out)
+
+
+def phase_serve(name):
+    """The danube serve path at full size: two same-seed runs, K5 counted
+    over the first, then four decode steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    cfg = get_config(ARCH)
+    B, P, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    r = serve(cfg, seed=0, **SERVE)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want["swa_decode"] = cfg.num_layers * (G - 1)
+    if counts != want:
+        raise AssertionError(f"serve: kernel launches {counts}, expected "
+                             f"{want}")
+    check(r.tokens.shape == (B, G) and r.logits.shape == (B, G,
+                                                          cfg.vocab_size))
+    check(torch.isfinite(r.logits).all())
+    check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()))
+    check(torch.equal(r.tokens, r.logits.float().argmax(-1)))
+    again = serve(cfg, seed=0, **SERVE)
+    if not torch.equal(again.tokens, r.tokens):
+        raise AssertionError("same-seed serve runs emitted different tokens")
+    rec = {"phase": "serve", "arch": ARCH, **SERVE,
+           "layers": cfg.num_layers, "window": cfg.window,
+           "dtype": cfg.dtype,
+           "decode_cur": [P, P + G - 2],
+           "prefill_ms": r.prefill_s * 1e3,
+           "prefill_tok_s": B * P / r.prefill_s,
+           "decode_ms_per_step": r.decode_s * 1e3 / (G - 1),
+           "decode_tok_s": B * (G - 1) / r.decode_s,
+           "rerun_prefill_ms": again.prefill_s * 1e3,
+           "rerun_decode_ms_per_step": again.decode_s * 1e3 / (G - 1),
+           "max_memory_allocated": peak, "launches": counts,
+           "identical_tokens": True,
+           "identical_logits": bool(torch.equal(again.logits, r.logits)),
+           "sample_tokens": r.tokens[0, :16].tolist()}
+    del r, again
+    torch.cuda.empty_cache()
+    # where a decode step's device time goes: K5 against the rest
+    dev = torch.device("cuda")
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    cache = api.make_cache(cfg, B, P + G, dev)
+    tok = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    with torch.inference_mode():
+        api.decode_step(params, cfg, cache, tok, P)       # warm
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.monotonic()
+        for i in range(4):
+            api.decode_step(params, cfg, cache, tok, P + 1 + i)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        prof.stop()
+    weights = sum(v.numel() * v.element_size() for v in params.values())
+    bw, _ = peaks(name)
+    rec["decode_profile_4_steps"] = device_profile(
+        prof, wall, ours=("swa_partial", "swa_combine"), label="k5_s")
+    rec["weight_bytes"] = weights
+    rec["weight_stream_bound_ms_per_step"] = weights / bw * 1e3
+    del params, cache
+    torch.cuda.empty_cache()
+    emit(rec)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's path needs one",
@@ -455,6 +737,9 @@ def main():
         raise AssertionError("same-seed runs sealed different blocks")
     emit({"phase": "determinism", "blocks": len(again),
           "identical": True, "head": again[-1]})
+    swa_row = phase_swa_kernel(name)
+    phase_serve_parity()
+    serve_counts = phase_serve(name)
 
     summary = []
     for k in table:
@@ -472,6 +757,18 @@ def main():
             "library_ms": main["library_ms"],
             "shape": {"W": main["W"], "D": main["D"],
                       "dtype": main["dtype"]}})
+    if serve_counts["swa_decode"] < 1:
+        raise AssertionError("swa_decode never launched on the serve path")
+    summary.append({
+        "name": "swa_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/swa_decode.cu",
+        "replaces": "src/repro/kernels/swa_decode.py:26",
+        "launches": serve_counts["swa_decode"],
+        "max_abs_err": swa_row["max_abs_err"], "ms": swa_row["ms"],
+        "plain_ms": swa_row["plain_ms"], "bound_ms": swa_row["bound_ms"],
+        "bound_by": swa_row["bound_by"], "library_ms": swa_row["library_ms"],
+        "shape": {k: swa_row[k] for k in ("B", "H", "KV", "hd", "S",
+                                           "window", "cur", "dtype")}})
     print(smi_line, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

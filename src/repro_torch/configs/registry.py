@@ -1,5 +1,6 @@
-"""--arch <id> registry of the port. Only the paper's own CNN is ported;
-the LLM configs wait for the zoo slice."""
+"""--arch <id> registry of the port: the archs ported so far, the paper's
+own CNN and h2o-danube-1.8b (the dense sliding-window decoder). The other
+LLM configs of ``repro.configs.registry`` wait for their slices."""
 from __future__ import annotations
 
 import importlib
@@ -7,11 +8,23 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES = {
-    "paper-net": "repro_torch.configs.paper_net",
+    "h2o-danube-1.8b":  "repro_torch.configs.h2o_danube_1_8b",
+    "paper-net":        "repro_torch.configs.paper_net",
 }
+
+def _module(arch: str):
+    if arch not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
+    return importlib.import_module(_ARCH_MODULES[arch])
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ARCH_MODULES)}")
-    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()
+
+
+# the LLM archs ``launch.serve`` runs: every ported arch but the CNN family
+ARCH_IDS = [a for a in _ARCH_MODULES if get_config(a).family != "cnn"]

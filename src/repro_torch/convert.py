@@ -1,5 +1,12 @@
 """Weights carried between the JAX package and the port.
 
+The decoder (``"embed"`` in the tree) carries over key for key: the
+reference's nested tree ``{"embed", "layers": {"attn": {"wq", ...}, ...},
+"final_norm", "lm_head"}`` becomes the port's flat dict with dotted keys
+(``layers.attn.wq``), shapes and (in, out) layouts unchanged. numpy has no
+bfloat16 of its own: ``params_from_jax`` takes JAX's bf16 arrays bit for
+bit, and ``params_to_jax`` returns bf16 leaves as exact float32 arrays.
+
 The JAX CNN keeps its params as a nested dict of arrays in its own layout;
 the port keeps a flat dict of PyTorch-layout tensors. Three differences:
 
@@ -39,9 +46,33 @@ def _fc1_cols_to_rows(w: np.ndarray, channels: int) -> np.ndarray:
     return w.reshape(hw * channels, -1)
 
 
+def _tensor(x, device) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a, order="C").view(np.uint16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _flatten(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, f"{prefix}{k}.")
+        else:
+            yield prefix + k, v
+
+
 def params_from_jax(tree, device="cpu") -> Dict[str, torch.Tensor]:
-    """Nested JAX CNN params ({layer: {"w", "b"}}) → the port's flat dict
-    on ``device``."""
+    """JAX params → the port's flat dict on ``device``: the decoder tree
+    (``"embed"`` in it) key for key, or the nested CNN params
+    ({layer: {"w", "b"}}) with the layout changes above."""
+    if "embed" in tree:
+        return {k: _tensor(v, device) for k, v in sorted(_flatten(tree))}
     t = {layer: {k: np.asarray(v) for k, v in leaves.items()}
          for layer, leaves in tree.items()}
     c2 = t["conv2"]["w"].shape[-1]
@@ -53,13 +84,20 @@ def params_from_jax(tree, device="cpu") -> Dict[str, torch.Tensor]:
     }
     for layer in t:
         out[f"{layer}.b"] = t[layer]["b"]
-    return {k: torch.from_numpy(np.array(v, order="C")).to(device)
-            for k, v in sorted(out.items())}
+    return {k: _tensor(v, device) for k, v in sorted(out.items())}
 
 
-def params_to_jax(params: Dict[str, torch.Tensor]
-                  ) -> Dict[str, Dict[str, np.ndarray]]:
+def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict:
     """The port's flat dict → nested numpy params in the JAX layout."""
+    if "embed" in params:
+        out: Dict = {}
+        for k, v in params.items():
+            *path, leaf = k.split(".")
+            node = out
+            for name in path:
+                node = node.setdefault(name, {})
+            node[leaf] = _array(v)
+        return out
     p = {k: v.detach().cpu().numpy() for k, v in params.items()}
     c2 = p["conv2.w"].shape[0]
     w = {

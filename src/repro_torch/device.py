@@ -18,6 +18,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     (cuDNN defaults to TF32, which keeps ~3 decimal digits), and
     deterministic cuDNN algorithms with autotuning off, so two same-seed
     runs produce bit-identical scores, params and therefore block hashes.
+    bf16 matmuls accumulate in full f32 (cuBLAS may otherwise reduce in
+    bf16), as the reference's bf16 products do.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -25,6 +27,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run the port on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False

@@ -1,4 +1,5 @@
-"""Kernel layer of the port — the trust round's hot spots on the H100.
+"""Kernel layer of the port — the hot spots of the trust round and of the
+danube serve path on the H100.
 
 ``pack``
     A param dict as ONE contiguous (W, D) matrix: leaves in sorted-key
@@ -8,12 +9,15 @@
     (``repro_torch/csrc/*.cu``) for tensors on the card, the plain PyTorch
     version it runs for tensors on the CPU, a launch counter
     (``wrapper.launches``) and the kernel's HBM byte count.
+``swa_decode`` (K5)
+    Sliding-window single-token decode attention of the danube serve path,
+    with the same layout: wrapper, plain version, counter, byte count.
 ``ref``
-    The three plain versions gathered under the reference's module name.
+    The plain versions gathered under the reference's module name.
 ``_build``
     Builds the CUDA sources with ``nvcc`` at first use and calls them
     through ``ctypes``.
 
-The Pallas kernels ``ssd_scan`` and ``swa_decode`` serve the LLM zoo and
-are not ported yet (see ROADMAP.md).
+The Pallas kernel ``ssd_scan`` (Mamba2/mLSTM prefill) is not ported yet
+(see ROADMAP.md).
 """

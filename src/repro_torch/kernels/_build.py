@@ -37,12 +37,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # weights/keep slice sits in shared memory: at most 256, see common.cuh)
 SPLIT_ROWS = 128
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "repro_trust_score": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
     "repro_trust_agg": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
     "repro_fused_async_agg": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                               _P],
+    "repro_swa_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,
+                         _I, _I, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

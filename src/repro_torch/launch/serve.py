@@ -1,0 +1,121 @@
+"""Serving driver of the port: batched prefill + decode with the stacked
+per-layer KV cache, on the card unless asked for the CPU.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-1.8b --batch 4 --prompt-len 64 --gen 32 --device cpu
+
+The flags and printed lines are those of ``repro.launch.serve``; without
+``--full`` it runs the arch's smoke config. Weights and prompts come from
+``--seed``: weights from a generator on the run's device, prompts from a
+CPU generator (so every device serves the same prompts). ``serve(cfg, ...)``
+is the same run as a function, for callers that want the tokens, logits and
+timings. Greedy decoding (``temperature <= 0``) is deterministic; sampling
+draws from a seeded generator on the run's device.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.registry import ARCH_IDS, get_config, \
+    get_smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.models import api
+
+
+@dataclasses.dataclass
+class ServeResult:
+    prompts: torch.Tensor     # (B, prompt_len) int64
+    tokens: torch.Tensor      # (B, gen) int64, the generated tokens
+    logits: torch.Tensor      # (B, gen, V): token t was drawn from logits[:, t]
+    prefill_s: float          # host wall time of the prefill, synchronized
+    decode_s: float           # host wall time of the gen - 1 decode steps
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
+          gen: int = 32, temperature: float = 0.0, seed: int = 0,
+          device=None, params: Optional[dict] = None) -> ServeResult:
+    """Prefill ``batch`` random prompts of ``prompt_len`` tokens, then
+    decode until ``gen`` tokens per sequence (the first from the prefill's
+    logits). ``params`` (on ``device``) replaces the seeded init."""
+    if gen < 1:
+        raise ValueError(f"gen = {gen}: serve generates at least one token")
+    dev = resolve_device(device)
+    with torch.inference_mode():
+        if params is None:
+            params = api.init(cfg, torch.Generator(dev).manual_seed(seed),
+                              dev)
+        prompts = torch.randint(
+            0, cfg.vocab_size, (batch, prompt_len),
+            generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+        sampler = torch.Generator(dev).manual_seed(seed + 10)
+
+        def sample(lg):
+            last = lg[:, -1].float()
+            if temperature <= 0:
+                return last.argmax(dim=-1, keepdim=True)
+            probs = torch.softmax(last / temperature, dim=-1)
+            return torch.multinomial(probs, 1, generator=sampler)
+
+        cache_len = prompt_len + gen
+        _sync(dev)
+        t0 = time.monotonic()
+        logits, cache = api.prefill(params, cfg, {"tokens": prompts},
+                                    cache_len)
+        _sync(dev)
+        prefill_s = time.monotonic() - t0
+
+        tok = sample(logits)
+        toks, lgs = [tok], [logits[:, -1]]
+        t0 = time.monotonic()
+        for t in range(gen - 1):
+            logits, cache = api.decode_step(params, cfg, cache, tok,
+                                            prompt_len + t)
+            tok = sample(logits)
+            toks.append(tok)
+            lgs.append(logits[:, -1])
+        _sync(dev)
+        decode_s = time.monotonic() - t0
+    return ServeResult(prompts=prompts, tokens=torch.cat(toks, dim=1),
+                       logits=torch.stack(lgs, dim=1), prefill_s=prefill_s,
+                       decode_s=decode_s)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="h2o-danube-1.8b", choices=ARCH_IDS)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch) if args.full else get_smoke_config(args.arch)
+    B = args.batch
+    r = serve(cfg, batch=B, prompt_len=args.prompt_len, gen=args.gen,
+              temperature=args.temperature, seed=args.seed,
+              device=args.device)
+    print(f"arch={args.arch} B={B} prompt={args.prompt_len} gen={args.gen}")
+    print(f"prefill: {r.prefill_s*1e3:8.1f} ms "
+          f"({B*args.prompt_len/r.prefill_s:9.0f} tok/s)")
+    print(f"decode : {r.decode_s*1e3:8.1f} ms "
+          f"({B*(args.gen-1)/max(r.decode_s,1e-9):9.0f} tok/s)")
+    print("sample token ids:", r.tokens[0, :16].tolist())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,17 @@
-"""Model API of the port — the CNN branch of ``repro.models.api``.
+"""Model API of the port — the CNN and dense-decoder branches of
+``repro.models.api``.
 
     init(cfg, gen, device)                     -> params (flat dict)
-    loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)
+    loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)  [cnn]
+    forward(params, cfg, batch)                -> (logits, aux)       [dense]
+    prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
+    cache_shape(cfg, batch, seq), make_cache(cfg, batch, seq, device)
+    decode_step(params, cfg, cache, tokens, cur_index) -> (logits, cache)
 
-Batches are dicts ``{images (W, B, 28, 28, 1), labels (W, B)}`` with the
-worker dimension first; a single model is the W = 1 case (``stack``). The
-LLM families wait for the zoo slice.
+CNN batches are dicts ``{images (W, B, 28, 28, 1), labels (W, B)}`` with
+the worker dimension first; a single model is the W = 1 case (``stack``).
+Decoder batches are ``{tokens (B, S)}``. The other LLM families wait for
+their slices.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn as CNN
+from repro_torch.models import transformer as TF
 
 Params = Dict[str, torch.Tensor]
 
@@ -23,14 +30,41 @@ Params = Dict[str, torch.Tensor]
 def _cnn_only(cfg: ModelConfig) -> None:
     if cfg.family != "cnn":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port runs the "
-            f"paper CNN only)")
+            f"family {cfg.family!r}: the port trains the paper CNN only")
 
 
 def init(cfg: ModelConfig, gen: torch.Generator,
          device: torch.device) -> Params:
-    _cnn_only(cfg)
-    return CNN.init_cnn(gen, cfg, device)
+    if cfg.family == "cnn":
+        return CNN.init_cnn(gen, cfg, device)
+    return TF.init_decoder(gen, cfg, device)
+
+
+def forward(params: Params, cfg: ModelConfig, batch):
+    """Full forward producing logits (B, S, V) and the aux loss."""
+    return TF.decoder_forward(params, cfg, batch["tokens"])
+
+
+def prefill(params: Params, cfg: ModelConfig, batch, cache_len: int):
+    """Process the prompt, returning (last_logits (B, 1, V), decode cache).
+    The cache is allocated at ``cache_len`` slots; decode continues at
+    cur_index = prompt_len."""
+    return TF.decoder_forward(params, cfg, batch["tokens"],
+                              prefill_cache_len=cache_len)
+
+
+def cache_shape(cfg: ModelConfig, batch: int, seq: int):
+    return TF.decoder_cache_shape(cfg, batch, seq)
+
+
+def make_cache(cfg: ModelConfig, batch: int, seq: int, device) -> Params:
+    """Zeroed decode cache; the KV leaves take ``cfg.dtype``."""
+    return TF.make_decoder_cache(cfg, batch, seq, device)
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache: Params,
+                tokens: torch.Tensor, cur_index: int):
+    return TF.decoder_decode_step(params, cfg, cache, tokens, cur_index)
 
 
 def stack(params: Params, W: int = 1) -> Params:

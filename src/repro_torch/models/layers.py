@@ -1,0 +1,251 @@
+"""Model-zoo building blocks of the port: the GQA attention and SwiGLU MLP
+subset of ``repro.models.layers`` that the dense decoders use.
+
+Plain functions over dicts of tensors, in the reference's layouts:
+weights are (in, out) and multiply as ``x @ W``; activations are
+(B, S, H, hd); caches are (B, S, KV, hd). The reference's tensor-parallel
+specs and its ``repro.models.sharding`` hooks are identities on one device
+and are dropped. The reference multiplies bf16 attention operands with f32
+accumulation (``preferred_element_type``); the port upcasts the operands to
+f32 instead, which gives the same products (a product of two bf16 values is
+exact in f32). Decode attention with a sliding window runs as the K5 kernel
+(``kernels.swa_decode``); ``decode_attention`` stays as the plain version
+for ``window == 0``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.swa_decode import swa_decode
+
+Params = Dict[str, torch.Tensor]
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
+               device) -> torch.Tensor:
+    scale = 1.0 / math.sqrt(in_dim)
+    return (torch.randn(shape, generator=gen, device=device) * scale
+            ).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, device=device) * 0.02
+            ).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm in f32, returned in ``x.dtype`` (forward only: the
+    reference's custom VJP serves training)."""
+    xf = x.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * r * weight).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)                  # (hd/2,)
+    angles = positions[..., :, None].float() * freqs          # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                     # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention cores
+# ---------------------------------------------------------------------------
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, Sq, KV, G, hd), k: (B, Skv, KV, hd) -> (B, KV, G, Sq, Skv)
+    f32."""
+    return torch.einsum("bqkgh,bskh->bkgqs", q.float(), k.float())
+
+
+def _attn_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor, causal: bool,
+               window: int) -> torch.Tensor:
+    """(Sq, Skv) boolean mask: True = attend."""
+    dq = q_pos[:, None]
+    dk = kv_pos[None, :]
+    mask = torch.ones((q_pos.shape[0], kv_pos.shape[0]), dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= dk <= dq
+    if window > 0:
+        mask &= (dq - dk) < window
+    return mask
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                      causal: bool = True, window: int = 0,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV chunks — O(Sq·chunk) live memory.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0.
+    window > 0 => sliding-window mask (q_pos - kv_pos < window).
+    Returns (B, Sq, H, hd).
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qs = q.reshape(B, Sq, KV, G, hd) * scale
+
+    if Skv <= kv_chunk or Skv % kv_chunk != 0:
+        s = _gqa_scores(qs, k)                                # (B,KV,G,Sq,Skv)
+        mask = _attn_mask(q_positions, kv_positions, causal, window)
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        o = torch.einsum("bkgqs,bskh->bqkgh", p.to(v.dtype).float(),
+                         v.float())
+        return o.reshape(B, Sq, H, hd).to(q.dtype)
+    m = torch.full((B, KV, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32,
+                      device=q.device)
+    qf = qs.float()
+    for c in range(0, Skv, kv_chunk):
+        k_i, v_i = k[:, c:c + kv_chunk], v[:, c:c + kv_chunk]
+        s = _gqa_scores(qf, k_i)                              # (B,KV,G,Sq,chunk)
+        mask = _attn_mask(q_positions, kv_positions[c:c + kv_chunk], causal,
+                          window)
+        s.masked_fill_(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = s.sub_(m_new[..., None]).exp_()                   # in place: s dies
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v_i.dtype).float(),
+                          v_i.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+        del s, p, pv
+    o = acc / l.clamp_min(1e-30)[..., None]                   # (B,KV,G,Sq,hd)
+    return o.movedim(3, 1).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, cur_index: int,
+                     window: int = 0) -> torch.Tensor:
+    """Single-token decode, plain version: q (B, 1, H, hd) vs cache
+    (B, S, KV, hd). Slots after ``cur_index`` are masked (and slots outside
+    the sliding window when ``window > 0``)."""
+    B, _, H, hd = q.shape
+    S, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qs = (q.reshape(B, KV, G, hd) * scale).to(k_cache.dtype)
+    s = torch.einsum("bkgh,bskh->bkgs", qs.float(), k_cache.float())
+    pos = torch.arange(S, device=q.device)
+    valid = pos <= cur_index
+    if window > 0:
+        valid &= (cur_index - pos) < window
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, v_cache.shape[-1]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention layer
+# ---------------------------------------------------------------------------
+
+def init_gqa(gen: torch.Generator, d_model: int, num_heads: int,
+             num_kv_heads: int, head_dim: int, dtype, device) -> Params:
+    hq, hkv = num_heads * head_dim, num_kv_heads * head_dim
+    return {
+        "wq": dense_init(gen, (d_model, hq), d_model, dtype, device),
+        "wk": dense_init(gen, (d_model, hkv), d_model, dtype, device),
+        "wv": dense_init(gen, (d_model, hkv), d_model, dtype, device),
+        "wo": dense_init(gen, (hq, d_model), hq, dtype, device),
+    }
+
+
+def apply_gqa(params: Params, x: torch.Tensor, *, num_heads: int,
+              num_kv_heads: int, head_dim: int, positions: torch.Tensor,
+              rope_theta: float, window: int = 0,
+              cache: Optional[Params] = None,
+              cur_index: Optional[int] = None):
+    """Causal self-attention. x: (B, S, d). Returns (out, kv).
+
+    Full sequence (no ``cache``): blocked attention over 1024-slot KV
+    chunks; ``kv`` holds the projected k and v, (B, S, KV, hd) each, for
+    the caller to put into a decode cache.
+
+    Decode (``cache`` given, S == 1): writes this token's k/v into slot
+    ``cur_index`` of the cache IN PLACE (the reference's
+    ``dynamic_update_slice`` is a functional copy; the port does not copy
+    the cache per step) and returns the cache as ``kv``. With
+    ``window > 0`` the attention is the K5 kernel."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
+    k = (x @ params["wk"]).reshape(B, S, num_kv_heads, head_dim)
+    v = (x @ params["wv"]).reshape(B, S, num_kv_heads, head_dim)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+
+    if cache is not None:
+        k_cache, v_cache = cache["k"], cache["v"]
+        k_cache[:, cur_index] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, cur_index] = v[:, 0].to(v_cache.dtype)
+        if window > 0:
+            o = swa_decode(q[:, 0].contiguous(), k_cache, v_cache, cur_index,
+                           window)
+        else:
+            o = decode_attention(q, k_cache, v_cache, cur_index=cur_index)
+        return o.reshape(B, S, -1) @ params["wo"], cache
+
+    o = blocked_attention(q, k, v, q_positions=positions,
+                          kv_positions=positions, causal=True,
+                          window=window, kv_chunk=1024)
+    return o.reshape(B, S, -1) @ params["wo"], {"k": k, "v": v}
+
+
+def gqa_cache_shape(batch: int, seq: int, num_kv_heads: int, head_dim: int):
+    return {"k": (batch, seq, num_kv_heads, head_dim),
+            "v": (batch, seq, num_kv_heads, head_dim)}
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                device) -> Params:
+    return {
+        "w_gate": dense_init(gen, (d_model, d_ff), d_model, dtype, device),
+        "w_up": dense_init(gen, (d_model, d_ff), d_model, dtype, device),
+        "w_down": dense_init(gen, (d_ff, d_model), d_ff, dtype, device),
+    }
+
+
+def apply_swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
+        @ params["w_down"]

@@ -9,7 +9,8 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import fused_round, ref, trust_agg, trust_score
+from repro_torch.kernels import fused_round, ref, swa_decode, trust_agg, \
+    trust_score
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -35,7 +36,8 @@ def test_port_imports_neither_jax_nor_repro():
 def test_protocol_imports_with_jax_and_repro_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
-            "import repro_torch.core.protocol, repro_torch.convert; "
+            "import repro_torch.core.protocol, repro_torch.convert, "
+            "repro_torch.launch.serve; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
@@ -50,19 +52,27 @@ def test_entry_points_run_on_cuda_unless_asked():
     from repro_torch.configs.registry import get_config
     from repro_torch.core.fl_step import make_fl_round
     from repro_torch.core.protocol import SDFLBProtocol
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import serve
     args = (get_config("paper-net"), FederationConfig(), TrainConfig())
+    danube = get_smoke_config("h2o-danube-1.8b")
+    tiny = dict(batch=1, prompt_len=4, gen=2)
     if torch.cuda.is_available():
         proto = SDFLBProtocol(*args)
         assert proto.node.device.type == "cuda"
         proto.finalize()
+        assert serve(danube, **tiny).tokens.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SDFLBProtocol(*args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_fl_round(*args)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve(danube, **tiny)
     proto = SDFLBProtocol(*args, device="cpu")
     assert proto.node.device.type == "cpu"
     proto.finalize()
+    assert serve(danube, device="cpu", **tiny).tokens.device.type == "cpu"
 
 
 def test_wrappers_on_cpu_return_the_plain_version():
@@ -70,9 +80,12 @@ def test_wrappers_on_cpu_return_the_plain_version():
     u = torch.randn((5, 300), generator=gen)
     w, keep = torch.rand(5, generator=gen), (torch.rand(5) > 0.5).float()
     pending = torch.randn((5, 300), generator=gen)
+    q, kc, vc = (torch.randn(s, generator=gen) for s in
+                 ((2, 4, 8), (2, 30, 2, 8), (2, 30, 2, 8)))
     before = (trust_score.trust_score_stats.launches,
               trust_agg.trust_agg.launches,
-              fused_round.fused_async_agg.launches)
+              fused_round.fused_async_agg.launches,
+              swa_decode.swa_decode.launches)
     for g, e in zip(trust_score.trust_score_stats(u), ref.trust_score_ref(u)):
         torch.testing.assert_close(g, e, rtol=0, atol=0)
     torch.testing.assert_close(trust_agg.trust_agg(u, w),
@@ -80,7 +93,11 @@ def test_wrappers_on_cpu_return_the_plain_version():
     for g, e in zip(fused_round.fused_async_agg(u, pending, w, keep),
                     ref.fused_async_agg_ref(u, pending, w, keep)):
         torch.testing.assert_close(g, e, rtol=0, atol=0)
+    torch.testing.assert_close(swa_decode.swa_decode(q, kc, vc, 20, 8),
+                               ref.swa_decode_ref(q, kc, vc, 20, 8),
+                               rtol=0, atol=0)
     # the plain path launches nothing
     assert before == (trust_score.trust_score_stats.launches,
                       trust_agg.trust_agg.launches,
-                      fused_round.fused_async_agg.launches)
+                      fused_round.fused_async_agg.launches,
+                      swa_decode.swa_decode.launches)

@@ -122,3 +122,24 @@ def test_hbm_accounting():
     assert _build.splits(W) == -(-W // _build.SPLIT_ROWS)
     assert _build.SPLIT_ROWS <= 256          # kMaxRows in csrc/common.cuh
 
+
+
+def test_ctypes_signatures_match_the_c_entry_points():
+    """Each ``_build._SIGNATURES`` entry lists the C entry point's
+    parameters in order, the stream last: pointers as c_void_p, ``int`` as
+    c_int, ``long long`` as c_int64. A missing entry makes ctypes pass a
+    pointer as a 32-bit int, which nvcc cannot catch."""
+    import ctypes
+    import re
+    kinds = {"int": ctypes.c_int, "long long": ctypes.c_int64}
+    found = {}
+    for src in _build.CSRC.glob("*.cu"):
+        for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)',
+                                       src.read_text()):
+            found[name] = [
+                kinds.get(" ".join(p.split()[:-1]).replace("const ", ""),
+                          ctypes.c_void_p) if "*" not in p else
+                ctypes.c_void_p for p in params.split(",")]
+    assert set(found) == set(_build._SIGNATURES)
+    for name, argtypes in _build._SIGNATURES.items():
+        assert argtypes == found[name], name
