@@ -49,12 +49,32 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   4096-slot window; K5 must launch 24 x 63 times; a second
                   same-seed run must emit the same tokens; then four decode
                   steps under torch.profiler
+  ssd_kernel      K4 ssd_scan against its plain version on the card, f32
+                  and bf16: zamba2-7b's prefill shape (B 4, S 4096, H 112,
+                  dk = dv = 64, chunk 128, q and k head-stride-0 views) with
+                  the model's gates and with gentle ones (a in [-0.02, 0]),
+                  the smoke shape, one chunk, an initial state; y and the
+                  final state held to ``ssd_scan.excess``, which must reject
+                  the four planted faults of ``ssd_scan.FAULTS`` at the
+                  gentle gates; two launches bitwise equal; times at the
+                  serve shape, the byte and FLOP bounds
+  zamba_parity    ``launch.serve.serve`` on the card against the same on the
+                  CPU: zamba2-7b at full width cut to 3 layers (one
+                  super-layer of 2 Mamba2 layers and the shared block, one
+                  tail layer), batch 2, a 256-token prompt, 4 greedy tokens,
+                  f32 and bf16; K4 must launch 3 times, no other kernel
+  zamba_serve     the third main path: zamba2-7b at full size (81 layers,
+                  seeded random weights, bf16) serving batch 4, a 4096-token
+                  prompt and 32 tokens; K4 must launch 81 times and no other
+                  kernel; a second same-seed run must emit the same tokens;
+                  then one prefill and four decode steps under
+                  torch.profiler
 
 Then it prints the card's ``nvidia-smi`` line, one ``{"kernels": [...]}``
 line (each kernel's launches on its main path, its error against the plain
 version, its time, the plain version's time, its bound and the time of a
 library call where one computes the same function: ``torch.mv`` for K2,
-``scaled_dot_product_attention`` for K5), and last
+``scaled_dot_product_attention`` for K5; none for K1, K3 and K4), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without the last line; so does a machine without CUDA.
 """
@@ -100,9 +120,23 @@ SWA_ROT = 4                      # layers of cache the timing rotates over
 SWA_ATOL = 1e-5
 SWA_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 # serve on the card vs on the CPU, absolute on logits (|logit| up to ~5):
-# f32 sums of 2560-6912 terms in other orders; bf16 rounds activations at
-# other places (cuBLAS and the CPU's kernels) through two layers
+# f32 sums of 2560-14336 terms in other orders; bf16 rounds activations at
+# other places (cuBLAS and the CPU's kernels) through the two (danube) or
+# three (zamba2) layers of the parity runs
 PARITY_TOL = {"float32": 1e-3, "bfloat16": 0.125}
+
+ZAMBA = "zamba2-7b"
+ZSERVE = dict(batch=4, prompt_len=4096, gen=32)  # prompt: 32 SSD chunks
+# one super-layer of 2 Mamba2 layers + the shared block, and 1 tail layer
+ZPARITY_CUTS = {"num_layers": 3, "shared_attn_every": 2}
+# K4 at zamba2-7b's prefill shape; the smoke config's SSD shape (d 256:
+# 8 heads, dk 16, chunk 64); one chunk; and a run from an initial state
+SSD_SERVE = dict(B=4, S=4096, H=112, dk=64, dv=64, chunk=128)
+SSD_CASES = [(SSD_SERVE, "model", False), (SSD_SERVE, "gentle", False),
+             (dict(B=4, S=256, H=8, dk=16, dv=64, chunk=64), "gentle", False),
+             (dict(SSD_SERVE, S=128), "gentle", False),
+             (dict(SSD_SERVE, S=512), "gentle", True)]
+BF16_TC_PEAK = 989e12            # dense bf16 tensor-core FLOP/s, H100 SXM
 
 
 def check(ok, what="check failed"):
@@ -316,9 +350,10 @@ def phase_parity():
 
 
 def counters():
-    from repro_torch.kernels import swa_decode
+    from repro_torch.kernels import ssd_scan, swa_decode
     out = {k["name"]: k["wrapper"] for k in kernel_table()}
     out["swa_decode"] = swa_decode.swa_decode
+    out["ssd_scan"] = ssd_scan.ssd_scan
     return out
 
 
@@ -443,7 +478,8 @@ def main_path(phase, async_mode):
     counts = read_counts()
     rec["launches"] = counts
     want = {"trust_score": 3, "trust_agg": 0 if async_mode else 3,
-            "fused_async_agg": 3 if async_mode else 0, "swa_decode": 0}
+            "fused_async_agg": 3 if async_mode else 0, "swa_decode": 0,
+            "ssd_scan": 0}
     if counts != want:
         raise AssertionError(f"{phase}: kernel launches {counts}, "
                              f"expected {want}")
@@ -612,32 +648,39 @@ def phase_serve_parity():
                      params={k: v.cuda() for k, v in params.items()}, **kw)
         launches = read_counts()["swa_decode"]
         check(launches == cfg.num_layers * (kw["gen"] - 1), launches)
-        lg_cpu, lg_card = cpu.logits.float(), card.logits.float().cpu()
-        check(torch.isfinite(lg_card).all())
-        same = (cpu.tokens == card.tokens.cpu()).all(dim=0)
-        # greedy tokens may part only at a near tie of the CPU's top two
-        # logits; logits are compared up to and including that step
-        upto = int(same.float().argmin()) if not same.all() else kw["gen"]
-        if upto < kw["gen"]:
-            top2 = lg_cpu[:, upto].topk(2, dim=-1).values
-            margin = float((top2[:, 0] - top2[:, 1]).min())
-            check(margin <= 2 * PARITY_TOL[dtype],
-                  f"{dtype}: tokens part at step {upto}, margin {margin}")
-        diff = (lg_card - lg_cpu)[:, :upto + 1].abs()
-        rec = {"prefill_logits_err": float(diff[:, 0].max()),
-               "decode_logits_err": (float(diff[:, 1:].max())
-                                     if diff.shape[1] > 1 else None),
-               "tokens_equal": bool(same.all()),
-               "first_token_step_apart": None if same.all() else upto,
-               "k5_launches": launches,
-               "logits_absmax": float(lg_cpu.abs().max())}
-        check(rec["prefill_logits_err"] <= PARITY_TOL[dtype], rec)
-        check(rec["decode_logits_err"] is None
-              or rec["decode_logits_err"] <= PARITY_TOL[dtype], rec)
+        rec = parity_record(cpu, card, dtype, kw["gen"])
+        rec["k5_launches"] = launches
         out[dtype] = rec
         del params, cpu, card
         torch.cuda.empty_cache()
     emit(out)
+
+
+def parity_record(cpu, card, dtype, gen):
+    """Card serve against CPU serve: prefill and decode logits within
+    PARITY_TOL, and the greedy tokens."""
+    lg_cpu, lg_card = cpu.logits.float(), card.logits.float().cpu()
+    check(torch.isfinite(lg_card).all())
+    same = (cpu.tokens == card.tokens.cpu()).all(dim=0)
+    # greedy tokens may part only at a near tie of the CPU's top two
+    # logits; logits are compared up to and including that step
+    upto = int(same.float().argmin()) if not same.all() else gen
+    if upto < gen:
+        top2 = lg_cpu[:, upto].topk(2, dim=-1).values
+        margin = float((top2[:, 0] - top2[:, 1]).min())
+        check(margin <= 2 * PARITY_TOL[dtype],
+              f"{dtype}: tokens part at step {upto}, margin {margin}")
+    diff = (lg_card - lg_cpu)[:, :upto + 1].abs()
+    rec = {"prefill_logits_err": float(diff[:, 0].max()),
+           "decode_logits_err": (float(diff[:, 1:].max())
+                                 if diff.shape[1] > 1 else None),
+           "tokens_equal": bool(same.all()),
+           "first_token_step_apart": None if same.all() else upto,
+           "logits_absmax": float(lg_cpu.abs().max())}
+    check(rec["prefill_logits_err"] <= PARITY_TOL[dtype], rec)
+    check(rec["decode_logits_err"] is None
+          or rec["decode_logits_err"] <= PARITY_TOL[dtype], rec)
+    return rec
 
 
 def phase_serve(name):
@@ -713,6 +756,249 @@ def phase_serve(name):
     return counts
 
 
+def ssd_inputs(B, S, H, dk, dv, gates, init, dtype, gen):
+    """K4's operands as Mamba2 hands them over: q and k head-stride-0 views
+    of one (B, S, 2 dk) projection (C and B), v (B, S, H, dv), f32 gates
+    i = softplus(N(0, 1)) and a = i * -linspace(1, 16, H) ("model", zamba2's
+    A at init: a averages -6.8, a chunk keeps ~e^-870 of the state) or
+    a ~ U(-0.02, 0) ("gentle": a chunk keeps >= e^-2.6)."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    bc = torch.randn((B, S, 2 * dk), generator=gen, device=dev).to(dt)
+    k = bc[..., :dk][:, :, None].expand(B, S, H, dk)
+    q = bc[..., dk:][:, :, None].expand(B, S, H, dk)
+    v = torch.randn((B, S, H, dv), generator=gen, device=dev).to(dt)
+    i = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    a = (i * -torch.linspace(1.0, 16.0, H, device=dev) if gates == "model"
+         else -0.02 * torch.rand((B, S, H), generator=gen, device=dev))
+    h0 = (torch.randn((B, H, dk, dv), generator=gen, device=dev) if init
+          else None)
+    return q, k, v, a, i, h0
+
+
+def ssd_case(K4, name, shape, gates, init, dtype, gen):
+    """K4 against its plain version's f32 result on the same inputs, y and
+    the final state within ``K4.excess``. At the serve shape with gentle
+    gates the plain version with each planted fault must fail that check;
+    with the model's gates, two launches must give the same bits and the
+    kernel, the plain version and the bounds are timed."""
+    B, S, H, dk, dv, chunk = (shape[x] for x in ("B", "S", "H", "dk", "dv",
+                                                 "chunk"))
+    q, k, v, a, i, h0 = ssd_inputs(B, S, H, dk, dv, gates, init, dtype, gen)
+    y, h = K4.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    y32, h32 = K4.ssd_scan_ref(q.float(), k.float(), v.float(), a, i,
+                               chunk=chunk, initial_state=h0)
+    check(y.shape == v.shape and y.dtype == v.dtype
+          and h.shape == (B, H, dk, dv) and h.dtype == torch.float32)
+    check(torch.isfinite(y.float()).all() and torch.isfinite(h).all())
+    rtol = K4.RTOL[v.dtype]
+    excess = {"y": K4.excess(y, y32, rtol), "state": K4.excess(h, h32)}
+    row = {**shape, "gates": gates, "initial_state": init, "dtype": dtype,
+           "max_abs_err": float((y.float() - y32).abs().max()),
+           "state_max_abs_err": float((h - h32).abs().max()),
+           "y_absmax": float(y32.abs().max()),
+           "state_absmax": float(h32.abs().max()), "excess": excess}
+    if max(excess.values()) > 0:
+        raise AssertionError(f"ssd_scan {row}: beyond the tolerance")
+    serve_shape = shape is SSD_SERVE
+    if serve_shape and gates == "gentle":
+        faults = {}
+        for fault in K4.FAULTS:
+            fy, fh = K4.ssd_scan_ref(q, k, v, a, i, chunk=chunk,
+                                     initial_state=h0, fault=fault)
+            faults[fault] = {"y_excess": K4.excess(fy, y32, rtol),
+                             "state_excess": K4.excess(fh, h32)}
+            check(max(faults[fault].values()) > 0,
+                  f"K4's tolerance passes a planted fault: {fault} {dtype}")
+            del fy, fh
+        row["planted_faults"] = faults
+    if serve_shape and gates == "model":
+        y2, h2 = K4.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
+        row["bitwise_equal_rerun"] = bool(torch.equal(y, y2)
+                                          and torch.equal(h, h2))
+        check(row["bitwise_equal_rerun"], "two K4 launches differ")
+        del y2, h2
+        bw, peak = peaks(name)
+        nbytes = K4.hbm_bytes(B, S, H, dk, dv, v.element_size())["minimum"]
+        fl = K4.flops(B, S, H, dk, dv, chunk)
+        t_bytes, t_ops = nbytes / bw * 1e3, fl / peak * 1e3
+        row.update({
+            # v and y alone (>= 235 MB) exceed the 50 MB L2: every launch
+            # streams from HBM, as in the prefill, where other layers ran
+            # in between
+            "ms": time_ms(lambda: K4.ssd_scan(q, k, v, a, i, chunk=chunk)),
+            "plain_ms": time_ms(lambda: K4.ssd_scan_ref(q, k, v, a, i,
+                                                        chunk=chunk)),
+            "library_ms": None,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "min_bytes": nbytes, "flops": fl})
+        if v.dtype == torch.bfloat16:
+            # the redesign's target: the same work on bf16 tensor cores
+            row["tensor_core_bound_ms"] = max(t_bytes,
+                                              fl / BF16_TC_PEAK * 1e3)
+        row["achieved_tflop_s"] = fl / row["ms"] / 1e9
+    del q, k, v, a, i, h0, y, h, y32, h32
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ssd_kernel(name):
+    """K4 against ssd_scan_ref on the card; returns the row at the serve
+    shape (bf16, the model's gates) for the kernels line."""
+    from repro_torch.kernels import ssd_scan as K4
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [ssd_case(K4, name, shape, gates, init, dtype, gen)
+             for dtype in ("float32", "bfloat16")
+             for shape, gates, init in SSD_CASES]
+    emit({"phase": "ssd_kernel", "atol_rel": K4.ATOL_REL,
+          "rtol_bf16": K4.RTOL[torch.bfloat16],
+          "tolerance": "|kernel - plain_f32| <= atol_rel * max|plain_f32| "
+                       "+ rtol * |plain_f32|, rtol 0 in f32 and for the "
+                       "state", "cases": cases})
+    return next(c for c in cases if c["dtype"] == "bfloat16"
+                and "ms" in c)
+
+
+def phase_zamba_parity():
+    """The zamba2 serve on the card against the same on the CPU, at full
+    width with the cuts listed in the phase line."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    kw = dict(batch=2, prompt_len=256, gen=4, seed=3)
+    out = {"phase": "zamba_parity", "arch": ZAMBA, "cuts": ZPARITY_CUTS,
+           **kw, "tol": PARITY_TOL}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(ZAMBA).replace(dtype=dtype, **ZPARITY_CUTS)
+        params = api.init(cfg, torch.Generator().manual_seed(3),
+                          torch.device("cpu"))
+        t0 = time.monotonic()
+        cpu = serve(cfg, device="cpu", params=params, **kw)
+        cpu_s = time.monotonic() - t0
+        reset_counts()
+        card = serve(cfg, device="cuda",
+                     params={k: v.cuda() for k, v in params.items()}, **kw)
+        launches = read_counts()
+        want = {k: 0 for k in launches}
+        want["ssd_scan"] = cfg.num_layers
+        if launches != want:
+            raise AssertionError(f"zamba_parity: kernel launches {launches}, "
+                                 f"expected {want}")
+        rec = parity_record(cpu, card, dtype, kw["gen"])
+        rec.update({"launches": launches, "cpu_serve_s": cpu_s})
+        out[dtype] = rec
+        del params, cpu, card
+        torch.cuda.empty_cache()
+    emit(out)
+
+
+def phase_zamba_serve(name):
+    """The zamba2 serve path at full size: two same-seed runs, K4 counted
+    over the first, then one prefill and four decode steps under
+    torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api, hybrid
+    cfg = get_config(ZAMBA)
+    B, P, G = ZSERVE["batch"], ZSERVE["prompt_len"], ZSERVE["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    r = serve(cfg, seed=0, **ZSERVE)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want["ssd_scan"] = cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"zamba_serve: kernel launches {counts}, "
+                             f"expected {want}")
+    check(r.tokens.shape == (B, G) and r.logits.shape == (B, G,
+                                                          cfg.vocab_size))
+    check(torch.isfinite(r.logits).all())
+    check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()))
+    check(torch.equal(r.tokens, r.logits.float().argmax(-1)))
+    again = serve(cfg, seed=0, **ZSERVE)
+    if not torch.equal(again.tokens, r.tokens):
+        raise AssertionError("same-seed zamba2 serves emitted different "
+                             "tokens")
+    k, n_super, n_tail = hybrid._split_layers(cfg)
+    rec = {"phase": "zamba_serve", "arch": ZAMBA, **ZSERVE,
+           "layers": cfg.num_layers, "super_layers": n_super,
+           "mamba_per_super": k, "tail_layers": n_tail, "dtype": cfg.dtype,
+           "prefill_ms": r.prefill_s * 1e3,
+           "prefill_tok_s": B * P / r.prefill_s,
+           "decode_ms_per_step": r.decode_s * 1e3 / (G - 1),
+           "decode_tok_s": B * (G - 1) / r.decode_s,
+           "rerun_prefill_ms": again.prefill_s * 1e3,
+           "rerun_decode_ms_per_step": again.decode_s * 1e3 / (G - 1),
+           "max_memory_allocated": peak, "launches": counts,
+           "identical_tokens": True,
+           "identical_logits": bool(torch.equal(again.logits, r.logits)),
+           "sample_tokens": r.tokens[0, :16].tolist()}
+    del r, again
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(dev)
+    acts = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+    with torch.inference_mode():
+        # where the prefill's device time goes: K4 against the rest
+        torch.cuda.synchronize()
+        prof = profile(activities=acts)
+        prof.start()
+        t0 = time.monotonic()
+        logits, cache = api.prefill(params, cfg, {"tokens": prompts}, P + G)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        prof.stop()
+        pre = device_profile(prof, wall, ours=("ssd_chunk_scan",),
+                             label="k4_s")
+        check(pre["device_busy_s"] > 0, "the profiler saw no device work")
+        pre["k4_share_of_busy"] = pre["k4_s"] / pre["device_busy_s"]
+        rec["prefill_profile"] = pre
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+        api.decode_step(params, cfg, cache, tok, P)       # warm
+        torch.cuda.synchronize()
+        prof = profile(activities=acts)
+        prof.start()
+        t0 = time.monotonic()
+        for i in range(4):
+            api.decode_step(params, cfg, cache, tok, P + 1 + i)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        prof.stop()
+    dec = device_profile(prof, wall, ours=("ssd_chunk_scan",), label="k4_s")
+    dec["device_activities_per_step"] = dec["activities"] / 4
+    rec["decode_profile_4_steps"] = dec
+    nbytes = {key: v.numel() * v.element_size() for key, v in params.items()}
+    shared = sum(n for key, n in nbytes.items()
+                 if key.startswith(hybrid.SHARED))
+    # a decode step reads every weight once, the shared block once per
+    # super-layer, and of the embedding only the B rows it looks up
+    per_step = (sum(nbytes.values()) - nbytes["embed"]
+                + B * cfg.d_model * params["embed"].element_size()
+                + (n_super - 1) * shared)
+    bw, _ = peaks(name)
+    rec.update({
+        "param_count": sum(v.numel() for v in params.values()),
+        "param_bytes": sum(nbytes.values()), "shared_block_bytes": shared,
+        "weight_bytes_per_decode_step": per_step,
+        "weight_stream_bound_ms_per_step": per_step / bw * 1e3,
+        "cache_bytes": {g: sum(t.numel() * t.element_size()
+                               for t in leaves.values())
+                        for g, leaves in cache.items()}})
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    emit(rec)
+    return counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's path needs one",
@@ -740,6 +1026,9 @@ def main():
     swa_row = phase_swa_kernel(name)
     phase_serve_parity()
     serve_counts = phase_serve(name)
+    ssd_row = phase_ssd_kernel(name)
+    phase_zamba_parity()
+    zamba_counts = phase_zamba_serve(name)
 
     summary = []
     for k in table:
@@ -769,6 +1058,19 @@ def main():
         "bound_by": swa_row["bound_by"], "library_ms": swa_row["library_ms"],
         "shape": {k: swa_row[k] for k in ("B", "H", "KV", "hd", "S",
                                            "window", "cur", "dtype")}})
+    if zamba_counts["ssd_scan"] < 1:
+        raise AssertionError("ssd_scan never launched on the zamba2 serve "
+                             "path")
+    summary.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:29",
+        "launches": zamba_counts["ssd_scan"],
+        "max_abs_err": ssd_row["max_abs_err"], "ms": ssd_row["ms"],
+        "plain_ms": ssd_row["plain_ms"], "bound_ms": ssd_row["bound_ms"],
+        "bound_by": ssd_row["bound_by"], "library_ms": ssd_row["library_ms"],
+        "shape": {k: ssd_row[k] for k in ("B", "S", "H", "dk", "dv", "chunk",
+                                           "gates", "dtype")}})
     print(smi_line, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

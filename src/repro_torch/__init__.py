@@ -5,8 +5,9 @@ The package mirrors ``repro``'s layout module for module
 and imports nothing from it. JAX-free host modules (configs, data, chain,
 reputation, async simulator) are verbatim copies with the package name
 changed; the device side is PyTorch, and the three trust kernels of the
-fused round and the sliding-window decode attention of the danube serve
-path are hand-written CUDA under ``csrc/`` (see ``kernels``).
+fused round, the sliding-window decode attention of the danube serve path
+and the SSD chunk scan of the zamba2 serve path are hand-written CUDA under
+``csrc/`` (see ``kernels``).
 
 Entry points (``core.protocol.SDFLBProtocol``, ``core.node.ChainNode``,
 ``core.fl_step.make_fl_round``, ``launch.serve.serve``) run on ``cuda``

@@ -1,6 +1,7 @@
 """--arch <id> registry of the port: the archs ported so far, the paper's
-own CNN and h2o-danube-1.8b (the dense sliding-window decoder). The other
-LLM configs of ``repro.configs.registry`` wait for their slices."""
+own CNN, h2o-danube-1.8b (the dense sliding-window decoder) and zamba2-7b
+(the Mamba2 + shared-attention hybrid). The other LLM configs of
+``repro.configs.registry`` wait for their slices."""
 from __future__ import annotations
 
 import importlib
@@ -10,6 +11,7 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES = {
     "h2o-danube-1.8b":  "repro_torch.configs.h2o_danube_1_8b",
     "paper-net":        "repro_torch.configs.paper_net",
+    "zamba2-7b":        "repro_torch.configs.zamba2_7b",
 }
 
 def _module(arch: str):

@@ -1,9 +1,12 @@
 """Weights carried between the JAX package and the port.
 
-The decoder (``"embed"`` in the tree) carries over key for key: the
+The LLM trees (``"embed"`` in the tree) carry over key for key: the
 reference's nested tree ``{"embed", "layers": {"attn": {"wq", ...}, ...},
 "final_norm", "lm_head"}`` becomes the port's flat dict with dotted keys
-(``layers.attn.wq``), shapes and (in, out) layouts unchanged. numpy has no
+(``layers.attn.wq``), shapes and (in, out) layouts unchanged. A list in the
+tree (the hybrid's ``tail`` of Mamba2 layers) takes its indices as keys
+(``tail.0.mamba.w_x``); an empty one carries no leaf, and the hybrid's
+``tail`` comes back as ``[]``. numpy has no
 bfloat16 of its own: ``params_from_jax`` takes JAX's bf16 arrays bit for
 bit, and ``params_to_jax`` returns bf16 leaves as exact float32 arrays.
 
@@ -60,15 +63,26 @@ def _array(t: torch.Tensor) -> np.ndarray:
 
 
 def _flatten(tree, prefix=""):
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             yield from _flatten(v, f"{prefix}{k}.")
         else:
-            yield prefix + k, v
+            yield f"{prefix}{k}", v
+
+
+def _lists(node):
+    """Nested dicts whose keys are 0..n-1 → lists, at every depth."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _lists(v) for k, v in node.items()}
+    if node and all(k.isdigit() for k in node):
+        return [node[str(i)] for i in range(len(node))]
+    return node
 
 
 def params_from_jax(tree, device="cpu") -> Dict[str, torch.Tensor]:
-    """JAX params → the port's flat dict on ``device``: the decoder tree
+    """JAX params → the port's flat dict on ``device``: an LLM tree
     (``"embed"`` in it) key for key, or the nested CNN params
     ({layer: {"w", "b"}}) with the layout changes above."""
     if "embed" in tree:
@@ -97,6 +111,9 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict:
             for name in path:
                 node = node.setdefault(name, {})
             node[leaf] = _array(v)
+        out = _lists(out)
+        if "super" in out:                 # the hybrid, its tail empty or not
+            out.setdefault("tail", [])
         return out
     p = {k: v.detach().cpu().numpy() for k, v in params.items()}
     c2 = p["conv2.w"].shape[0]

@@ -45,6 +45,7 @@ _SIGNATURES = {
                               _P],
     "repro_swa_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,
                          _I, _I, _P, _P, _P, _P, _P],
+    "repro_ssd_scan": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P, _P, _P],
 }
 
 _lock = threading.Lock()

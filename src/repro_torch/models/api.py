@@ -1,17 +1,18 @@
-"""Model API of the port — the CNN and dense-decoder branches of
+"""Model API of the port — the CNN, dense-decoder and hybrid branches of
 ``repro.models.api``.
 
     init(cfg, gen, device)                     -> params (flat dict)
     loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)  [cnn]
-    forward(params, cfg, batch)                -> (logits, aux)       [dense]
+    forward(params, cfg, batch)                -> (logits, aux) [dense, hybrid]
     prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
     cache_shape(cfg, batch, seq), make_cache(cfg, batch, seq, device)
     decode_step(params, cfg, cache, tokens, cur_index) -> (logits, cache)
 
 CNN batches are dicts ``{images (W, B, 28, 28, 1), labels (W, B)}`` with
 the worker dimension first; a single model is the W = 1 case (``stack``).
-Decoder batches are ``{tokens (B, S)}``. The other LLM families wait for
-their slices.
+Decoder batches are ``{tokens (B, S)}``. The dense family runs through
+``transformer``, the hybrid (zamba2) through ``hybrid``; the other LLM
+families wait for their slices (``transformer.check_ported`` raises).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn as CNN
+from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TF
 
 Params = Dict[str, torch.Tensor]
@@ -37,11 +39,15 @@ def init(cfg: ModelConfig, gen: torch.Generator,
          device: torch.device) -> Params:
     if cfg.family == "cnn":
         return CNN.init_cnn(gen, cfg, device)
+    if cfg.family == "hybrid":
+        return HY.init_hybrid(gen, cfg, device)
     return TF.init_decoder(gen, cfg, device)
 
 
 def forward(params: Params, cfg: ModelConfig, batch):
     """Full forward producing logits (B, S, V) and the aux loss."""
+    if cfg.family == "hybrid":
+        return HY.hybrid_forward(params, cfg, batch["tokens"])
     return TF.decoder_forward(params, cfg, batch["tokens"])
 
 
@@ -49,21 +55,31 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache_len: int):
     """Process the prompt, returning (last_logits (B, 1, V), decode cache).
     The cache is allocated at ``cache_len`` slots; decode continues at
     cur_index = prompt_len."""
+    if cfg.family == "hybrid":
+        return HY.hybrid_forward(params, cfg, batch["tokens"],
+                                 prefill_cache_len=cache_len)
     return TF.decoder_forward(params, cfg, batch["tokens"],
                               prefill_cache_len=cache_len)
 
 
 def cache_shape(cfg: ModelConfig, batch: int, seq: int):
+    if cfg.family == "hybrid":
+        return HY.hybrid_cache_shape(cfg, batch, seq)
     return TF.decoder_cache_shape(cfg, batch, seq)
 
 
-def make_cache(cfg: ModelConfig, batch: int, seq: int, device) -> Params:
-    """Zeroed decode cache; the KV leaves take ``cfg.dtype``."""
+def make_cache(cfg: ModelConfig, batch: int, seq: int, device):
+    """Zeroed decode cache: recurrent ``ssm`` states in f32, KV and conv
+    leaves in ``cfg.dtype`` (the reference's ``api.cache_struct``)."""
+    if cfg.family == "hybrid":
+        return HY.make_hybrid_cache(cfg, batch, seq, device)
     return TF.make_decoder_cache(cfg, batch, seq, device)
 
 
-def decode_step(params: Params, cfg: ModelConfig, cache: Params,
+def decode_step(params: Params, cfg: ModelConfig, cache,
                 tokens: torch.Tensor, cur_index: int):
+    if cfg.family == "hybrid":
+        return HY.hybrid_decode_step(params, cfg, cache, tokens, cur_index)
     return TF.decoder_decode_step(params, cfg, cache, tokens, cur_index)
 
 

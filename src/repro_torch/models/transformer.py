@@ -33,8 +33,8 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 def check_ported(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port's decoder "
-            f"runs the dense family)")
+            f"family {cfg.family!r} is not ported yet (the port runs the "
+            f"dense and hybrid families)")
     if cfg.attn_type not in ("gqa", "swa"):
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} is not ported yet")

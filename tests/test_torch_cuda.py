@@ -8,9 +8,10 @@ PyTorch is installed."""
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import fused_round, ref, swa_decode, trust_agg, \
-    trust_score
+from repro_torch.kernels import fused_round, ref, ssd_scan, swa_decode, \
+    trust_agg, trust_score
 
 
 @pytest.fixture
@@ -137,3 +138,110 @@ def test_swa_decode_is_bitwise_deterministic_on_card(cuda):
     a = swa_decode.swa_decode(q, kc, vc, 5000, 4096)
     b = swa_decode.swa_decode(q, kc, vc, 5000, 4096)
     assert torch.equal(a, b)
+
+
+# K4 against ssd_scan_ref: (B, S, H, dk, dv, chunk, gates, initial state).
+# zamba2-7b's prefill shape with its gates and with gentle ones (a chunk
+# keeps >= e^-2.6 of the state, so the carry across chunks shows), the smoke
+# shape, one chunk only, an initial state, the 128-wide instantiation, and
+# chunks that are no multiple of the 32-row tile or shorter than a warp.
+SSD_CASES = [(4, 4096, 112, 64, 64, 128, "model", False),
+             (4, 4096, 112, 64, 64, 128, "gentle", False),
+             (2, 128, 8, 16, 64, 64, "gentle", False),
+             (2, 128, 16, 64, 64, 128, "gentle", False),
+             (2, 256, 8, 64, 64, 128, "gentle", True),
+             (1, 256, 4, 128, 128, 128, "gentle", True),
+             (2, 160, 3, 24, 40, 80, "gentle", True),
+             (1, 60, 2, 8, 8, 20, "model", False)]
+
+
+def _ssd_inputs(B, S, H, dk, dv, gates, init, dtype, dev, seed=0):
+    """The model's operands: q and k as head-stride-0 views of one (B, S,
+    2 dk) projection (Mamba2's C and B), v (B, S, H, dv), f32 gates with
+    i = softplus(N(0, 1)) and a = i * -linspace(1, 16, H) ("model", as at
+    zamba2's init) or a ~ U(-0.02, 0) ("gentle")."""
+    gen = torch.Generator(device=dev).manual_seed(seed + S + H + dk)
+    dt = getattr(torch, dtype)
+    bc = torch.randn((B, S, 2 * dk), generator=gen, device=dev).to(dt)
+    k = bc[..., :dk][:, :, None].expand(B, S, H, dk)
+    q = bc[..., dk:][:, :, None].expand(B, S, H, dk)
+    v = torch.randn((B, S, H, dv), generator=gen, device=dev).to(dt)
+    i = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    if gates == "model":
+        a = i * -torch.linspace(1.0, 16.0, H, device=dev)
+    else:
+        a = -0.02 * torch.rand((B, S, H), generator=gen, device=dev)
+    h0 = torch.randn((B, H, dk, dv), generator=gen, device=dev) \
+        if init else None
+    return q, k, v, a, i, h0
+
+
+def _ssd_plain_f32(q, k, v, a, i, h0, chunk, fault=None):
+    return ref.ssd_scan_ref(q.float(), k.float(), v.float(), a, i,
+                            chunk=chunk, initial_state=h0, fault=fault)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,gates,init", SSD_CASES)
+def test_ssd_scan_matches_plain_version_on_card(cuda, B, S, H, dk, dv, chunk,
+                                                gates, init, dtype):
+    """y and the final state within ``ssd_scan.excess`` of the plain
+    version's f32 result on the same card inputs."""
+    q, k, v, a, i, h0 = _ssd_inputs(B, S, H, dk, dv, gates, init, dtype,
+                                    cuda)
+    assert q.stride(2) == 0
+    before = ssd_scan.ssd_scan.launches
+    y, h = ssd_scan.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan.launches == before + 1
+    assert y.dtype == v.dtype and y.shape == v.shape
+    assert h.dtype == torch.float32 and h.shape == (B, H, dk, dv)
+    y32, h32 = _ssd_plain_f32(q, k, v, a, i, h0, chunk)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(h).all()
+    assert ssd_scan.excess(y, y32, ssd_scan.RTOL[v.dtype]) <= 0
+    assert ssd_scan.excess(h, h32) <= 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_tolerance_rejects_planted_faults_on_card(cuda, dtype):
+    """At the serve shape with gentle gates, the plain version with each
+    planted fault fails the check the kernel passes above."""
+    q, k, v, a, i, h0 = _ssd_inputs(4, 4096, 112, 64, 64, "gentle", False,
+                                    dtype, cuda)
+    y32, h32 = _ssd_plain_f32(q, k, v, a, i, h0, 128)
+    for fault in ssd_scan.FAULTS:
+        fy, fh = ref.ssd_scan_ref(q, k, v, a, i, chunk=128, fault=fault)
+        worst = max(ssd_scan.excess(fy, y32, ssd_scan.RTOL[v.dtype]),
+                    ssd_scan.excess(fh, h32))
+        assert worst > 0, fault
+
+
+@pytest.mark.cuda
+def test_ssd_scan_is_bitwise_deterministic_on_card(cuda):
+    q, k, v, a, i, h0 = _ssd_inputs(4, 4096, 112, 64, 64, "model", True,
+                                    "bfloat16", cuda)
+    y1, h1 = ssd_scan.ssd_scan(q, k, v, a, i, chunk=128, initial_state=h0)
+    y2, h2 = ssd_scan.ssd_scan(q, k, v, a, i, chunk=128, initial_state=h0)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
+    """A CUDA tensor the kernel cannot take raises; it never runs the plain
+    version instead."""
+    q, k, v, a, i, _ = _ssd_inputs(1, 256, 2, 16, 16, "model", False,
+                                   "float32", cuda)
+    before = ssd_scan.ssd_scan.launches
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_scan.ssd_scan(q, k, v, a, i, chunk=256)
+    with pytest.raises(TypeError):
+        ssd_scan.ssd_scan(q.half(), k.half(), v.half(), a, i, chunk=128)
+    wide = torch.zeros((1, 256, 2, 160), device=cuda)
+    with pytest.raises(ValueError, match="dk"):
+        ssd_scan.ssd_scan(wide, wide, v, a, i, chunk=128)
+    with pytest.raises(ValueError, match="rows"):
+        ssd_scan.ssd_scan(q.transpose(2, 3).contiguous().transpose(2, 3), k,
+                          v, a, i, chunk=128)
+    assert ssd_scan.ssd_scan.launches == before

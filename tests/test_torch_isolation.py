@@ -9,8 +9,8 @@ import sys
 import pytest
 import torch
 
-from repro_torch.kernels import fused_round, ref, swa_decode, trust_agg, \
-    trust_score
+from repro_torch.kernels import fused_round, ref, ssd_scan, swa_decode, \
+    trust_agg, trust_score
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
@@ -37,7 +37,8 @@ def test_protocol_imports_with_jax_and_repro_blocked():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; "
             "import repro_torch.core.protocol, repro_torch.convert, "
-            "repro_torch.launch.serve; "
+            "repro_torch.launch.serve, repro_torch.models.hybrid, "
+            "repro_torch.models.ssm, repro_torch.kernels.ssd_scan; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
@@ -55,24 +56,27 @@ def test_entry_points_run_on_cuda_unless_asked():
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.launch.serve import serve
     args = (get_config("paper-net"), FederationConfig(), TrainConfig())
-    danube = get_smoke_config("h2o-danube-1.8b")
+    archs = [get_smoke_config(a) for a in ("h2o-danube-1.8b", "zamba2-7b")]
     tiny = dict(batch=1, prompt_len=4, gen=2)
     if torch.cuda.is_available():
         proto = SDFLBProtocol(*args)
         assert proto.node.device.type == "cuda"
         proto.finalize()
-        assert serve(danube, **tiny).tokens.device.type == "cuda"
+        for cfg in archs:
+            assert serve(cfg, **tiny).tokens.device.type == "cuda"
         return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SDFLBProtocol(*args)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_fl_round(*args)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        serve(danube, **tiny)
+    for cfg in archs:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve(cfg, **tiny)
     proto = SDFLBProtocol(*args, device="cpu")
     assert proto.node.device.type == "cpu"
     proto.finalize()
-    assert serve(danube, device="cpu", **tiny).tokens.device.type == "cpu"
+    for cfg in archs:
+        assert serve(cfg, device="cpu", **tiny).tokens.device.type == "cpu"
 
 
 def test_wrappers_on_cpu_return_the_plain_version():
@@ -82,10 +86,14 @@ def test_wrappers_on_cpu_return_the_plain_version():
     pending = torch.randn((5, 300), generator=gen)
     q, kc, vc = (torch.randn(s, generator=gen) for s in
                  ((2, 4, 8), (2, 30, 2, 8), (2, 30, 2, 8)))
+    sq, sk, sv = (torch.randn(s, generator=gen) for s in
+                  ((2, 32, 1, 8), (2, 32, 1, 8), (2, 32, 3, 4)))
+    sq, sk = sq.expand(2, 32, 3, 8), sk.expand(2, 32, 3, 8)
+    sa, si = -torch.rand((2, 32, 3), generator=gen), torch.rand((2, 32, 3))
     before = (trust_score.trust_score_stats.launches,
               trust_agg.trust_agg.launches,
               fused_round.fused_async_agg.launches,
-              swa_decode.swa_decode.launches)
+              swa_decode.swa_decode.launches, ssd_scan.ssd_scan.launches)
     for g, e in zip(trust_score.trust_score_stats(u), ref.trust_score_ref(u)):
         torch.testing.assert_close(g, e, rtol=0, atol=0)
     torch.testing.assert_close(trust_agg.trust_agg(u, w),
@@ -96,8 +104,12 @@ def test_wrappers_on_cpu_return_the_plain_version():
     torch.testing.assert_close(swa_decode.swa_decode(q, kc, vc, 20, 8),
                                ref.swa_decode_ref(q, kc, vc, 20, 8),
                                rtol=0, atol=0)
+    for g, e in zip(ssd_scan.ssd_scan(sq, sk, sv, sa, si, chunk=16),
+                    ref.ssd_scan_ref(sq, sk, sv, sa, si, chunk=16)):
+        torch.testing.assert_close(g, e, rtol=0, atol=0)
     # the plain path launches nothing
     assert before == (trust_score.trust_score_stats.launches,
                       trust_agg.trust_agg.launches,
                       fused_round.fused_async_agg.launches,
-                      swa_decode.swa_decode.launches)
+                      swa_decode.swa_decode.launches,
+                      ssd_scan.ssd_scan.launches)

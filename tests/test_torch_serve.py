@@ -305,7 +305,7 @@ def test_serve_cli_prints_the_reference_lines(capsys):
 
 
 def test_registry_holds_only_ported_archs():
-    assert ARCH_IDS == [ARCH]
+    assert ARCH_IDS == [ARCH, "zamba2-7b"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.window) == (24, 2560, 32, 8, 80,
