@@ -13,7 +13,8 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
   kernels         K1 trust_score, K2 trust_agg, K3 fused_async_agg against
                   their plain PyTorch versions on the card at D = 21840 (the
                   paper CNN) and W in {16, 4096, 10240} f32, plus bf16 at
-                  W = 4096: error, CUDA-event times, byte bound
+                  W = 4096: error, CUDA-event times, byte bound; one K2 call
+                  must launch exactly one kernel (``one_kernel``)
   parity          one round of ``make_fl_round`` on the card against the same
                   round on the CPU (sync and async, fused path, no dropout)
   protocol_sync   the main path: ``SDFLBProtocol.run_round`` x3 on the paper
@@ -30,14 +31,15 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   hashes must be identical
   swa_kernel      K5 swa_decode against its plain version on the card at
                   danube's decode shape (B 4, H 32, KV 8, hd 80, window
-                  4096, S 5184 = no multiple of the kernel's chunk), f32 and
+                  4096, S 5184 = no multiple of the kernel's tile), f32 and
                   bf16, cur below, at and past the window, plus two small
                   ragged cases (G 1 and G 5 over KV 1); times at the serve
                   shape with the caches cold in L2, the byte bound, and one
                   ``scaled_dot_product_attention`` call on pre-sliced
                   windows as the library yardstick; the tolerance must
                   reject K5 run with the window one slot off or its oldest
-                  chunk dropped
+                  256 slots dropped; one K5 call must launch exactly one
+                  kernel (``one_kernel``), and two launches give equal bits
   serve_parity    ``launch.serve.serve`` on the card against the same on the
                   CPU: h2o-danube-1.8b at full width, cut to 2 layers and a
                   256-slot window, batch 2, a 320-token prompt and 4 greedy
@@ -116,7 +118,8 @@ SWA_ROT = 4                      # layers of cache the timing rotates over
 # |kernel - plain_f32| <= SWA_ATOL + SWA_RTOL[dtype] * |plain_f32|. In f32
 # they differ in summation order only (measured <= 8e-7); in bf16 the kernel
 # also rounds its result once, by at most half a bf16 step (2^-8 of the
-# value). A window one slot off or a dropped chunk fails it (planted_faults).
+# value). A window one slot off or without its oldest 256 slots fails it
+# (planted_faults).
 SWA_ATOL = 1e-5
 SWA_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 # serve on the card vs on the CPU, absolute on logits (|logit| up to ~5):
@@ -179,6 +182,24 @@ def time_ms(fn):
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def one_kernel(fn, name, calls=4):
+    """Check that ``calls`` calls of ``fn`` ran one device kernel each:
+    the profiler recorded ``calls`` runtime calls that put work on the
+    card, each a kernel launch (no copy or memset), and every device
+    activity it recorded is the kernel whose name holds ``name``. The
+    device records alone cannot be counted: the profiler loses some of
+    them (``_build.launch_records``)."""
+    from repro_torch.kernels import _build
+    enqueued, device = _build.launch_records(fn, calls)
+    check(len(enqueued) == calls and all("Launch" in n for n in enqueued)
+          and all(name in n for n in device),
+          f"{name}: {calls} calls enqueued {enqueued} and ran {device}, "
+          f"expected one kernel each")
+    return {"calls": calls, "launch_calls": len(enqueued),
+            "device_records": len(device),
+            "name": device[0] if device else None}
 
 
 # -- phases -----------------------------------------------------------------
@@ -276,6 +297,15 @@ def kernel_case(k, W, dtype, bw, f32_peak, gen):
            "streamed_bytes": hbm["total"],
            "library_ms": (time_ms(lambda: lib(*args))
                           if lib is not None and dtype == "float32" else None)}
+    if k["name"] == "trust_agg":
+        from repro_torch.kernels import trust_agg as K2
+        again = k["wrapper"](*args)
+        row["bitwise_equal_rerun"] = bool(torch.equal(again, got[0]))
+        check(row["bitwise_equal_rerun"], f"two K2 launches differ, W={W}")
+        row["device_kernel"] = one_kernel(lambda: k["wrapper"](*args),
+                                          "trust_agg")
+        row["plan"] = K2.plan(W, D_PAPER, u.element_size())._asdict()
+        del again
     del u, pending, args, got, want
     return row
 
@@ -366,7 +396,7 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-TRUST_KERNELS = ("split_colsum", "finish_colsum", "row_stats")
+TRUST_KERNELS = ("split_colsum", "finish_colsum", "row_stats", "trust_agg")
 
 
 def device_profile(prof, wall_s, ours=TRUST_KERNELS, label="trust_kernels_s"):
@@ -541,7 +571,7 @@ def swa_case(K5, name, B, H, KV, hd, S, window, cur, dtype, gen, timed):
     plain version; with ``timed``, also the CUDA-event times of the kernel,
     the plain version and SDPA on pre-sliced windows, the bound, and the
     check run on planted faults: K5 called with the window one slot short,
-    one slot long, or without its oldest chunk must fail it."""
+    one slot long, or without its oldest 256 slots must fail it."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     dt = getattr(torch, dtype)
@@ -564,13 +594,19 @@ def swa_case(K5, name, B, H, KV, hd, S, window, cur, dtype, gen, timed):
                              f"{err}, beyond the tolerance by {excess}")
     row = {"B": B, "H": H, "KV": KV, "hd": hd, "S": S, "window": window,
            "cur": cur, "dtype": dtype, "max_abs_err": err,
-           "max_err_vs_plain_f32": float((got.float() - want32).abs().max())}
+           "max_err_vs_plain_f32": float((got.float() - want32).abs().max()),
+           "plan": K5.plan(cur, window)._asdict()}
     if not timed:
         return row
+    again = K5.swa_decode(q, kc[0], vc[0], cur, window)
+    row["bitwise_equal_rerun"] = bool(torch.equal(again, got))
+    check(row["bitwise_equal_rerun"], f"two K5 launches differ, {dtype}")
+    row["device_kernel"] = one_kernel(
+        lambda: K5.swa_decode(q, kc[0], vc[0], cur, window), "swa_decode")
     faults = {}
     for fault, w in (("window_minus_1", window - 1),
                      ("window_plus_1", window + 1),
-                     ("oldest_chunk_dropped", window - K5.CHUNK)):
+                     ("oldest_256_slots_dropped", window - 256)):
         bad = K5.swa_decode(q, kc[0], vc[0], cur, w)
         faults[fault] = {"max_abs_err": float(
             (bad.float() - want.float()).abs().max()),
@@ -622,7 +658,6 @@ def phase_swa_kernel(name):
             cases.append(swa_case(K5, name, B, H, KV, hd, S, window, cur,
                                   dtype, gen, timed=False))
     emit({"phase": "swa_kernel", "atol": SWA_ATOL, "rtol": SWA_RTOL,
-          "chunk": K5.CHUNK,
           "cases": cases})
     return next(c for c in cases if c["dtype"] == "bfloat16"
                 and c["cur"] == SWA_MAIN_CUR)
@@ -746,8 +781,10 @@ def phase_serve(name):
         prof.stop()
     weights = sum(v.numel() * v.element_size() for v in params.values())
     bw, _ = peaks(name)
-    rec["decode_profile_4_steps"] = device_profile(
-        prof, wall, ours=("swa_partial", "swa_combine"), label="k5_s")
+    dec = device_profile(prof, wall, ours=("swa_decode",), label="k5_s")
+    dec["device_activities_per_step"] = dec["activities"] / 4
+    dec["k5_ms_per_step"] = dec["k5_s"] * 1e3 / 4
+    rec["decode_profile_4_steps"] = dec
     rec["weight_bytes"] = weights
     rec["weight_stream_bound_ms_per_step"] = weights / bw * 1e3
     del params, cache

@@ -6,7 +6,9 @@
 //   * a block sum in one fixed order (warp shuffles, then warp 0);
 //   * the W-split column reduction: block (x, s) sums rows
 //     [s*rows, (s+1)*rows) of its column tile into partial[s, :], and a
-//     second launch sums the partials in split order.
+//     second launch sums the partials in split order (K1 and K3);
+//   * the arrival step of a one-launch reduction (K2, K5): the blocks of a
+//     group publish partial sums, and the last to arrive combines them.
 //
 // No float atomics anywhere. The scores these kernels feed are committed
 // on-chain as <f8 inside Merkle-hashed records, so every sum has one fixed
@@ -182,6 +184,28 @@ cudaError_t launch_colsum(const T* u, const float* pending,
   finish_colsum<0><<<cdiv(D, kThreads), kThreads, 0, stream>>>(partial, S, D,
                                                                divisor, out);
   return cudaGetLastError();
+}
+
+// The arrival step of a reduction inside one launch: `n` blocks share the
+// int `counter`, each publishes its partial sums to global memory and then
+// calls this (every thread of the block). It returns true, in every thread,
+// in the one block that arrives last; that block then sees every block's
+// partials (read them through L2: __ldcg or cp.async.cg), and the counter
+// is back at 0 for the next launch. The counter must be 0 when the launch
+// starts, and only one launch at a time may use it. An integer atomic: the
+// partials are combined in an order the caller fixes, whatever the order of
+// arrival.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int n) {
+  __shared__ int last;
+  __threadfence();                       // this block's partials are out
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(counter, 1) == n - 1;
+    if (last) *counter = 0;              // every block has arrived
+  }
+  __syncthreads();
+  if (last) __threadfence();             // every block's partials are in
+  return last;
 }
 
 }  // namespace rt

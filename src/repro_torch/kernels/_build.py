@@ -33,18 +33,19 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-# rows of the update matrix per W-split of a column reduction (a block's
-# weights/keep slice sits in shared memory: at most 256, see common.cuh)
+# rows of the update matrix per W-split of K1's and K3's column reduction
+# (a block's weights/keep slice sits in shared memory: at most 256, see
+# common.cuh)
 SPLIT_ROWS = 128
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "repro_trust_score": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-    "repro_trust_agg": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
+    "repro_trust_agg": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "repro_fused_async_agg": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
                               _P],
     "repro_swa_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,
-                         _I, _I, _P, _P, _P, _P, _P],
+                         _I, _I, _I, _P, _P, _P, _P],
     "repro_ssd_scan": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P, _P, _P],
 }
 
@@ -150,6 +151,32 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+def launch_records(fn, calls: int = 4):
+    """What ``calls`` calls of ``fn`` asked of the card, from
+    torch.profiler: the names of the runtime API calls that put work on a
+    stream (kernel launches, copies, memsets), in order, and the names of
+    the device activities recorded. The runtime calls are recorded on the
+    host and come complete. The device records do not: on the H100 the
+    profiler has lost some or all of a short session's kernel records once
+    the process had run other work for a while, so only the names of those
+    recorded can be checked."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    prof.stop()
+    events = prof.events()
+    enqueued = [e.name for e in events if e.device_type == DeviceType.CPU
+                and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))]
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA
+              and e.name not in ("Activity Buffer Request", "Buffer Flush")]
+    return enqueued, device
+
+
 # -- argument checks shared by the wrappers ------------------------------------
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -184,5 +211,35 @@ def check_operand(x: torch.Tensor, name: str, shape: tuple,
             raise ValueError(f"{name} must be contiguous")
 
 
-def ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+def ptr(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """x's device address, or a null pointer for None."""
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+
+def device_of(x: torch.Tensor) -> torch.device:
+    """x's CUDA device with its index."""
+    return x.device if x.device.index is not None else \
+        torch.device("cuda", torch.cuda.current_device())
+
+
+# (kernel, device index, stream) -> (arrival counters, f32 scratch)
+_scratch: dict = {}
+
+
+def scratch(kernel: str, device: torch.device, counters: int, floats: int):
+    """The int32 arrival counters and the f32 scratch that one launch of
+    ``kernel`` uses to combine its blocks' partial sums, kept per device and
+    current stream (one launch at a time uses them) and grown when a call
+    needs more. The kernels leave their counters at 0, so the counters are
+    zeroed only when allocated (a fill kernel, that once)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (kernel, device.index, stream)
+    cnt, part = _scratch.get(key, (None, None))
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 1024), dtype=torch.int32,
+                          device=device)
+    if part is None or part.numel() < floats:
+        part = torch.empty(max(floats, 1 << 18), dtype=torch.float32,
+                           device=device)
+    _scratch[key] = (cnt, part)
+    return cnt, part

@@ -10,13 +10,16 @@ tensors on the CPU.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import _build
 
-CHUNK = 256      # cache slots per block of the kernel's first launch
-MAX_G = 16       # query rows per KV head the kernel takes
-MAX_HD = 256
+MAX_CHUNKS = 8   # blocks per (b, kv), combined by the last to finish
+CHUNK_ALIGN = 64  # a block's 4 warps take 16-slot tiles in turn
+MAX_G = 16       # query rows per KV head: the rows of one mma tile
+HEAD_DIMS = (32, 64, 80, 128)   # hd the kernel is built for
 
 
 def swa_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
@@ -40,6 +43,31 @@ def swa_decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
 def window_slots(cur_index: int, window: int) -> int:
     """Cache slots a decode at ``cur_index`` attends to."""
     return cur_index - max(cur_index - window + 1, 0) + 1
+
+
+class Plan(NamedTuple):
+    """How one kernel launch covers the window: ``nchunks`` blocks per
+    (b, kv), block ``c`` taking the slots
+    ``[lo + c * chunk, min(lo + (c + 1) * chunk, cur + 1))``."""
+    lo: int
+    chunk: int
+    nchunks: int
+
+
+def plan(cur_index: int, window: int) -> Plan:
+    """The window's slots cut into at most MAX_CHUNKS chunks of a multiple
+    of CHUNK_ALIGN slots, none empty."""
+    lo = max(cur_index - window + 1, 0)
+    n = cur_index - lo + 1
+    chunk = -(-n // MAX_CHUNKS)
+    chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
+    return Plan(lo, chunk, -(-n // chunk))
+
+
+def partial_floats(G: int, hd: int) -> int:
+    """f32 values of one chunk's partial in the scratch: m and l (16 each,
+    one per row of the kernel's 16-row tile) and acc (G, hd)."""
+    return 32 + G * hd
 
 
 def _check(q, k_cache, v_cache, cur_index, window):
@@ -74,9 +102,9 @@ def _check_card(q, k_cache, v_cache):
     B, H, hd = q.shape
     vec = 16 // q.element_size()
     G = H // k_cache.shape[2]
-    if G > MAX_G or hd > MAX_HD or hd % vec:
+    if G > MAX_G or hd not in HEAD_DIMS:
         raise ValueError(f"G = {G}, hd = {hd}: the kernel takes G <= "
-                         f"{MAX_G} and hd <= {MAX_HD} a multiple of {vec}")
+                         f"{MAX_G} and hd in {HEAD_DIMS}")
     if not q.is_contiguous():
         raise ValueError("q must be contiguous")
     if k_cache.stride() != v_cache.stride() or k_cache.stride(3) != 1 or \
@@ -96,7 +124,9 @@ def swa_decode(q: torch.Tensor, k_cache: torch.Tensor,
     caches may be strided views (the layer of a stacked cache) as long as
     each row of hd values is contiguous. On CUDA tensors this launches the
     kernel (counted in ``.launches``); on CPU tensors it returns the plain
-    version."""
+    version. The kernel's small scratch for more than one chunk (their
+    partials and arrival counters) is kept per device and stream
+    (``_build.scratch``)."""
     cur_index, window = int(cur_index), int(window)
     _check(q, k_cache, v_cache, cur_index, window)
     if q.device.type == "cpu":
@@ -104,20 +134,20 @@ def swa_decode(q: torch.Tensor, k_cache: torch.Tensor,
     _check_card(q, k_cache, v_cache)
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
-    G = H // KV
-    nchunks = -(-window_slots(cur_index, window) // CHUNK)
-    dev = q.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    m_part = torch.empty((B * KV, nchunks, G), **f32)
-    l_part = torch.empty((B * KV, nchunks, G), **f32)
-    acc_part = torch.empty((B * KV, nchunks, G, hd), **f32)
+    p = plan(cur_index, window)
     out = torch.empty_like(q)
     sb, ss, sh, _ = k_cache.stride()
+    dev = _build.device_of(q)
+    cnt = part = None            # one chunk writes out directly
+    if p.nchunks > 1:
+        cnt, part = _build.scratch(
+            "swa_decode", dev, B * KV,
+            B * KV * p.nchunks * partial_floats(H // KV, hd))
     _build.launch("repro_swa_decode", dev, _build.ptr(q),
                   _build.ptr(k_cache), _build.ptr(v_cache),
                   int(q.dtype == torch.bfloat16), B, H, KV, hd, sb, ss, sh,
-                  cur_index, window, S, CHUNK, _build.ptr(m_part),
-                  _build.ptr(l_part), _build.ptr(acc_part), _build.ptr(out))
+                  cur_index, window, S, p.chunk, p.nchunks, _build.ptr(cnt),
+                  _build.ptr(part), _build.ptr(out))
     swa_decode.launches += 1
     return out
 
@@ -129,13 +159,14 @@ def hbm_bytes(B: int, H: int, KV: int, hd: int, window: int, cur: int,
               itemsize: int) -> dict:
     """HBM traffic of one K5 call. ``minimum`` counts q and the output once
     and the window's K and V rows once (what the function must move);
-    ``total`` adds the f32 partials, written by the first launch and read by
-    the second."""
+    ``total`` adds the chunks' f32 partials, each written once and read once
+    by the block that combines them (none with one chunk)."""
     n = window_slots(cur, window)
-    nchunks = -(-n // CHUNK)
+    nchunks = plan(cur, window).nchunks
     qo = 2 * B * H * hd * itemsize
     kv = 2 * B * KV * n * hd * itemsize
-    partials = 2 * B * H * nchunks * (hd + 2) * 4
+    partials = 0 if nchunks == 1 else \
+        2 * B * KV * nchunks * partial_floats(H // KV, hd) * 4
     return {"kv_read": kv, "other": qo + partials,
             "total": qo + kv + partials, "minimum": qo + kv}
 

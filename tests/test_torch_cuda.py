@@ -10,8 +10,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import fused_round, ref, ssd_scan, swa_decode, \
-    trust_agg, trust_score
+from repro_torch.kernels import _build, fused_round, ref, ssd_scan, \
+    swa_decode, trust_agg, trust_score
 
 
 @pytest.fixture
@@ -57,6 +57,43 @@ def test_kernels_match_plain_versions_on_card(cuda, W, D, dtype):
             torch.testing.assert_close(g, e, rtol=0, atol=tol)
 
 
+# K2 over the W of its paths: one row split below 128 rows, then 2 (W 129)
+# or 8 splits combined inside the launch; D = 21840 (the paper CNN) and
+# D = 21839 (no multiple of 4 or 8: one column per thread)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [21840, 21839])
+@pytest.mark.parametrize("W", [1, 7, 16, 129, 4096, 10240])
+def test_trust_agg_matches_plain_version_on_card(cuda, W, D, dtype):
+    u, _, weights, _ = _inputs(W, D, dtype, cuda)
+    before = trust_agg.trust_agg.launches
+    got = trust_agg.trust_agg(u, weights)
+    torch.cuda.synchronize()
+    assert trust_agg.trust_agg.launches == before + 1
+    want = ref.trust_agg_ref(u, weights)
+    assert got.dtype == torch.float32 and got.shape == (D,)
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, rtol=0, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,D,dtype", [(16, 21840, "float32"),
+                                       (4096, 21840, "float32"),
+                                       (4096, 21840, "bfloat16"),
+                                       (129, 21839, "float32")])
+def test_trust_agg_is_one_deterministic_launch_on_card(cuda, W, D, dtype):
+    """Two launches give the same bits, and one call is one device
+    kernel (one kernel launch, no copy or memset, among the runtime calls
+    the profiler records): the splits are summed inside the launch."""
+    u, _, weights, _ = _inputs(W, D, dtype, cuda)
+    a, b = trust_agg.trust_agg(u, weights), trust_agg.trust_agg(u, weights)
+    assert torch.equal(a, b)
+    enqueued, device = _build.launch_records(
+        lambda: trust_agg.trust_agg(u, weights))
+    assert enqueued == ["cudaLaunchKernel"] * 4, enqueued
+    assert all("trust_agg" in n for n in device), device
+
+
 @pytest.mark.cuda
 def test_kernels_are_bitwise_deterministic_on_card(cuda):
     """Two launches on the same inputs give the same bits: no atomics."""
@@ -74,11 +111,16 @@ def test_kernels_are_bitwise_deterministic_on_card(cuda):
 
 # K5 against swa_decode_ref: (B, H, KV, hd, S, window, cur), ragged and at
 # danube's decode shape (H 32, KV 8, hd 80, window 4096); S is no multiple
-# of the kernel's 256-slot chunk, and cur runs below, at and past the window.
+# of a tile, cur runs below, at and past the window, G is 1, 4, 5 and 8,
+# and the window's slots are fewer than the 8 chunks of a full window
+# (cur 0-7) or no multiple of the chunk (1001, 350, 600 slots).
 SWA_CASES = [(1, 1, 1, 80, 37, 16, 36), (3, 5, 1, 32, 300, 64, 0),
              (2, 8, 2, 32, 1000, 1, 999), (4, 32, 8, 80, 5184, 4096, 100),
              (4, 32, 8, 80, 5184, 4096, 4095), (4, 32, 8, 80, 5184, 4096, 4096),
-             (4, 32, 8, 80, 5184, 4096, 5183)]
+             (4, 32, 8, 80, 5184, 4096, 5183),
+             (4, 32, 8, 80, 5184, 4096, 1000), (3, 5, 1, 32, 700, 350, 699),
+             (2, 16, 2, 64, 700, 600, 650), (2, 16, 2, 128, 300, 200, 299)] + \
+    [(2, 8, 1, 80, 64, 4096, cur) for cur in range(8)]
 # held elementwise to the plain version's f32 result before any rounding:
 # |kernel - plain_f32| <= 1e-5 + rtol * |plain_f32|. In f32 both differ in
 # summation order only (measured <= 8e-7 on the H100); in bf16 the kernel
@@ -122,10 +164,10 @@ def test_swa_decode_matches_plain_version_on_card(cuda, B, H, KV, hd, S,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_swa_tolerance_rejects_planted_faults_on_card(cuda, dtype):
     """At the serve shape the check above fails K5 run with the window one
-    slot short or long, or without its oldest chunk."""
+    slot short or long, or without its oldest 256 slots."""
     q, kc, vc = _swa_inputs(4, 32, 8, 80, 5184, dtype, cuda)
     want = _plain_f32(q, kc, vc, 5183, 4096)
-    for w in (4095, 4097, 4096 - swa_decode.CHUNK):
+    for w in (4095, 4097, 4096 - 256):
         bad = swa_decode.swa_decode(q, kc, vc, 5183, w)
         with pytest.raises(AssertionError):
             torch.testing.assert_close(bad.float(), want,
@@ -138,6 +180,24 @@ def test_swa_decode_is_bitwise_deterministic_on_card(cuda):
     a = swa_decode.swa_decode(q, kc, vc, 5000, 4096)
     b = swa_decode.swa_decode(q, kc, vc, 5000, 4096)
     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cur", [3, 5000])
+def test_swa_decode_is_one_deterministic_launch_on_card(cuda, dtype, cur):
+    """Two launches give the same bits, and one call is one device
+    kernel (one kernel launch, no copy or memset, among the runtime calls
+    the profiler records): the chunks are combined inside the launch (one
+    chunk at cur 3, eight at cur 5000)."""
+    q, kc, vc = _swa_inputs(4, 32, 8, 80, 5184, dtype, cuda)
+    a = swa_decode.swa_decode(q, kc, vc, cur, 4096)
+    b = swa_decode.swa_decode(q, kc, vc, cur, 4096)
+    assert torch.equal(a, b)
+    enqueued, device = _build.launch_records(
+        lambda: swa_decode.swa_decode(q, kc, vc, cur, 4096))
+    assert enqueued == ["cudaLaunchKernel"] * 4, enqueued
+    assert all("swa_decode" in n for n in device), device
 
 
 # K4 against ssd_scan_ref: (B, S, H, dk, dv, chunk, gates, initial state).

@@ -121,7 +121,60 @@ def test_hbm_accounting():
     assert k1["minimum"] < k1["total"]
     assert _build.splits(W) == -(-W // _build.SPLIT_ROWS)
     assert _build.SPLIT_ROWS <= 256          # kMaxRows in csrc/common.cuh
+    # K2 in one launch: the matrix once, plus its splits' f32 sums (under
+    # 2 % of the matrix at W = 10240) and none with one split
+    for itemsize in (4, 2):
+        k2 = trust_agg.hbm_bytes(W, D, itemsize)
+        splits = trust_agg.plan(W, D, itemsize).splits
+        assert k2["update_read"] == W * D * itemsize
+        assert k2["minimum"] == W * D * itemsize + W * 4 + D * 4
+        assert k2["total"] - k2["minimum"] == 2 * splits * D * 4
+        assert k2["total"] < 1.02 * k2["minimum"]
+    small = trust_agg.hbm_bytes(16, D, 4)
+    assert small["total"] == small["minimum"] == 16 * D * 4 + 16 * 4 + D * 4
 
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("D", [1, 7, 2053, 21839, 21840, 1 << 20])
+@pytest.mark.parametrize("W", [1, 7, 16, 63, 64, 129, 4096, 10240, 100_000])
+def test_trust_agg_plan_covers_every_row_and_column_once(W, D, itemsize):
+    """K2's launch plan: the splits take every row once, in order, none
+    empty; the column tiles take every column once, 16-byte pieces only
+    where D allows them."""
+    p = trust_agg.plan(W, D, itemsize)
+    assert 1 <= p.splits <= min(W, trust_agg.MAX_SPLITS)
+    # the kernel derives the rows from the splits the same way
+    assert p.rows == -(-W // p.splits)
+    spans = [(s * p.rows, min(W, (s + 1) * p.rows)) for s in range(p.splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == W
+    assert all(a < b for a, b in spans)
+    assert all(spans[i][1] == spans[i + 1][0] for i in range(p.splits - 1))
+    assert p.vec == (16 // itemsize if D % (16 // itemsize) == 0 else 1)
+    tile = trust_agg.THREADS * p.vec          # columns per block
+    assert (p.tiles - 1) * tile < D <= p.tiles * tile
+    if p.splits > 1:
+        assert p.rows >= trust_agg.MIN_SPLIT_ROWS
+    assert trust_agg.plan(W, D, itemsize, aligned=False).vec == 1
+
+
+def test_trust_agg_plan_fills_the_card_at_the_main_path_shape():
+    """W = 16, D = 21840 f32 (the sync round): one split, and enough column
+    tiles for every SM; at W = 4096 the splits raise the grid further."""
+    p = trust_agg.plan(16, 21840, 4)
+    assert p.splits == 1 and p.rows == 16
+    assert p.tiles * p.splits >= trust_agg.SMS
+    for W, itemsize in ((4096, 4), (4096, 2), (10240, 4)):
+        big = trust_agg.plan(W, 21840, itemsize)
+        assert big.splits > 1 and big.tiles * big.splits >= trust_agg.SMS
+
+
+def test_trust_agg_block_width_matches_the_kernel():
+    """The plan's column tiles assume the kernel's block width: THREADS is
+    ``kThreads`` in csrc/trust_agg.cu."""
+    import re
+    src = (_build.CSRC / "trust_agg.cu").read_text()
+    assert re.findall(r"constexpr int kThreads = (\d+);", src) == \
+        [str(trust_agg.THREADS)]
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

@@ -135,12 +135,70 @@ def test_swa_wrapper_rejects_what_the_function_does_not_define():
         swa_decode.swa_decode(torch.zeros(1, 3, 8), k, v, 3, 4)
 
 
+def test_swa_head_widths_are_the_kernels_instantiations():
+    """HEAD_DIMS lists the hd that csrc/swa_decode.cu is built for."""
+    import re
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "swa_decode.cu").read_text()
+    built = [int(h) for h in re.findall(r"^\s*REPRO_SWA_HD\((\d+)\);", src,
+                                        re.M)]
+    assert tuple(built) == swa_decode.HEAD_DIMS
+
+
+@pytest.mark.parametrize("H,KV,hd,ok", [(32, 8, 80, True), (4, 2, 32, True),
+                                        (32, 2, 80, True), (8, 2, 16, False),
+                                        (8, 2, 96, False), (32, 32, 112, False),
+                                        (34, 2, 80, False)])
+def test_swa_card_path_takes_only_the_built_shapes(H, KV, hd, ok):
+    """Before a launch the wrapper refuses what the kernel is not built
+    for: hd outside HEAD_DIMS (zamba2's 112 among them) or more than MAX_G
+    query rows per KV head."""
+    q, k, v = torch.zeros(2, H, hd), torch.zeros(2, 40, KV, hd), \
+        torch.zeros(2, 40, KV, hd)
+    if ok:
+        swa_decode._check_card(q, k, v)
+    else:
+        with pytest.raises(ValueError, match="the kernel takes"):
+            swa_decode._check_card(q, k, v)
+
+
 def test_swa_hbm_bytes_counts_the_window_only():
     b = swa_decode.hbm_bytes(4, 32, 8, 80, 4096, 5183, 2)
     assert b["kv_read"] == 2 * 4 * 8 * 4096 * 80 * 2      # ~42 MB per layer
     assert b["minimum"] == b["kv_read"] + 2 * 4 * 32 * 80 * 2
+    # 8 chunks' f32 partials (m, l for 16 rows, acc (4, 80)), written and
+    # read once: 1.6 % of the window's bytes
+    assert b["total"] - b["minimum"] == 2 * 4 * 8 * 8 * (32 + 4 * 80) * 4
     early = swa_decode.hbm_bytes(4, 32, 8, 80, 4096, 99, 2)
     assert early["kv_read"] == 2 * 4 * 8 * 100 * 80 * 2
+    assert early["total"] - early["minimum"] == 2 * 4 * 8 * 2 * 352 * 4
+    short = swa_decode.hbm_bytes(4, 32, 8, 80, 4096, 7, 2)
+    assert short["total"] == short["minimum"]       # one chunk: no partials
+
+
+@pytest.mark.parametrize("window", [1, 2, 7, 8, 9, 63, 64, 65, 100, 255,
+                                    256, 1000, 4095, 4096, 5000])
+def test_swa_plan_covers_the_window_once_in_chunk_order(window):
+    """K5's launch plan: chunks of whole 64-slot steps, none empty, at most
+    MAX_CHUNKS blocks per (b, kv), that together take each slot of
+    [max(cur - window + 1, 0), cur] once, in order."""
+    for cur in sorted({0, 1, 3, 7, 8, window - 2, window - 1, window,
+                       window + 1, 2 * window + 5, 5182} - {-1}):
+        p = swa_decode.plan(cur, window)
+        assert p.chunk % swa_decode.CHUNK_ALIGN == 0
+        assert 1 <= p.nchunks <= swa_decode.MAX_CHUNKS
+        slots = [pos for c in range(p.nchunks)
+                 for pos in range(p.lo + c * p.chunk,
+                                  min(p.lo + (c + 1) * p.chunk, cur + 1))]
+        assert slots == list(range(max(cur - window + 1, 0), cur + 1))
+        assert p.lo + (p.nchunks - 1) * p.chunk <= cur        # none empty
+
+
+def test_swa_plan_at_the_serve_shape():
+    """danube's last decode step: 4096 window slots in 8 chunks of 512 per
+    (b, kv); a short window takes one chunk."""
+    assert swa_decode.plan(5182, 4096) == (1087, 512, 8)
+    assert swa_decode.plan(3, 4096) == (0, 64, 1)
 
 
 # ---------------------------------------------------------------------------
