@@ -57,9 +57,11 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   the model's gates and with gentle ones (a in [-0.02, 0]),
                   the smoke shape, one chunk, an initial state; y and the
                   final state held to ``ssd_scan.excess``, which must reject
-                  the four planted faults of ``ssd_scan.FAULTS`` at the
-                  gentle gates; two launches bitwise equal; times at the
-                  serve shape, the byte and FLOP bounds
+                  the five planted faults of ``ssd_scan.FAULTS`` at the
+                  gentle gates; two launches bitwise equal and one kernel
+                  launch a call (``one_kernel``); times at the serve shape
+                  beside the bound (bytes, or flops on the bf16 tensor
+                  cores) and the bound on the ordinary f32 cores
   zamba_parity    ``launch.serve.serve`` on the card against the same on the
                   CPU: zamba2-7b at full width cut to 3 layers (one
                   super-layer of 2 Mamba2 layers and the shared block, one
@@ -102,9 +104,11 @@ REPS = 30                        # timed launches per measurement (median)
 # per output; both read the same inputs and sum in f32 in different orders
 RTOL = 1e-4
 
-# published peaks (NVIDIA data sheets): HBM bytes/s, non-tensor f32 FLOP/s
-PEAKS = [("H200", 4.8e12, 67e12), ("H100 NVL", 3.9e12, 60e12),
-         ("H100 PCIe", 2.0e12, 51e12), ("H100", 3.35e12, 67e12)]
+# published peaks (NVIDIA data sheets): HBM bytes/s, non-tensor f32 FLOP/s,
+# dense bf16 tensor-core FLOP/s
+PEAKS = [("H200", 4.8e12, 67e12, 989e12), ("H100 NVL", 3.9e12, 60e12, 835e12),
+         ("H100 PCIe", 2.0e12, 51e12, 756e12),
+         ("H100", 3.35e12, 67e12, 989e12)]
 
 ARCH = "h2o-danube-1.8b"
 SERVE = dict(batch=4, prompt_len=5120, gen=64)   # prompt: 5 x kv_chunk 1024
@@ -133,13 +137,14 @@ ZSERVE = dict(batch=4, prompt_len=4096, gen=32)  # prompt: 32 SSD chunks
 # one super-layer of 2 Mamba2 layers + the shared block, and 1 tail layer
 ZPARITY_CUTS = {"num_layers": 3, "shared_attn_every": 2}
 # K4 at zamba2-7b's prefill shape; the smoke config's SSD shape (d 256:
-# 8 heads, dk 16, chunk 64); one chunk; and a run from an initial state
+# 8 heads, dk 16, chunk 64); one chunk; a run from an initial state; and
+# one with q and k of their own for every head (head stride dk)
 SSD_SERVE = dict(B=4, S=4096, H=112, dk=64, dv=64, chunk=128)
 SSD_CASES = [(SSD_SERVE, "model", False), (SSD_SERVE, "gentle", False),
              (dict(B=4, S=256, H=8, dk=16, dv=64, chunk=64), "gentle", False),
              (dict(SSD_SERVE, S=128), "gentle", False),
-             (dict(SSD_SERVE, S=512), "gentle", True)]
-BF16_TC_PEAK = 989e12            # dense bf16 tensor-core FLOP/s, H100 SXM
+             (dict(SSD_SERVE, S=512), "gentle", True),
+             (dict(SSD_SERVE, S=512, per_head_qk=True), "gentle", True)]
 
 
 def check(ok, what="check failed"):
@@ -160,9 +165,18 @@ def smi(query):
 
 def peaks(name):
     """(HBM bytes/s, f32 FLOP/s outside the tensor cores) of the card."""
-    for key, bw, f32 in PEAKS:
-        if key in name:
-            return bw, f32
+    return _peak_row(name)[1:3]
+
+
+def tensor_peak(name):
+    """Dense bf16 tensor-core FLOP/s of the card."""
+    return _peak_row(name)[3]
+
+
+def _peak_row(name):
+    for row in PEAKS:
+        if row[0] in name:
+            return row
     raise RuntimeError(f"no published peaks for {name!r}")
 
 
@@ -793,18 +807,23 @@ def phase_serve(name):
     return counts
 
 
-def ssd_inputs(B, S, H, dk, dv, gates, init, dtype, gen):
+def ssd_inputs(B, S, H, dk, dv, gates, init, dtype, gen, per_head=False):
     """K4's operands as Mamba2 hands them over: q and k head-stride-0 views
-    of one (B, S, 2 dk) projection (C and B), v (B, S, H, dv), f32 gates
+    of one (B, S, 2 dk) projection (C and B), or with ``per_head`` their
+    own values for every head, v (B, S, H, dv), f32 gates
     i = softplus(N(0, 1)) and a = i * -linspace(1, 16, H) ("model", zamba2's
     A at init: a averages -6.8, a chunk keeps ~e^-870 of the state) or
     a ~ U(-0.02, 0) ("gentle": a chunk keeps >= e^-2.6)."""
     import torch.nn.functional as F
     dev = torch.device("cuda")
     dt = getattr(torch, dtype)
-    bc = torch.randn((B, S, 2 * dk), generator=gen, device=dev).to(dt)
-    k = bc[..., :dk][:, :, None].expand(B, S, H, dk)
-    q = bc[..., dk:][:, :, None].expand(B, S, H, dk)
+    if per_head:
+        k = torch.randn((B, S, H, dk), generator=gen, device=dev).to(dt)
+        q = torch.randn((B, S, H, dk), generator=gen, device=dev).to(dt)
+    else:
+        bc = torch.randn((B, S, 2 * dk), generator=gen, device=dev).to(dt)
+        k = bc[..., :dk][:, :, None].expand(B, S, H, dk)
+        q = bc[..., dk:][:, :, None].expand(B, S, H, dk)
     v = torch.randn((B, S, H, dv), generator=gen, device=dev).to(dt)
     i = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
     a = (i * -torch.linspace(1.0, 16.0, H, device=dev) if gates == "model"
@@ -818,11 +837,13 @@ def ssd_case(K4, name, shape, gates, init, dtype, gen):
     """K4 against its plain version's f32 result on the same inputs, y and
     the final state within ``K4.excess``. At the serve shape with gentle
     gates the plain version with each planted fault must fail that check;
-    with the model's gates, two launches must give the same bits and the
-    kernel, the plain version and the bounds are timed."""
+    with the model's gates, two launches must give the same bits, 4 calls
+    must make 4 kernel launches and nothing else (``one_kernel``), and the
+    kernel and the plain version are timed beside the bound."""
     B, S, H, dk, dv, chunk = (shape[x] for x in ("B", "S", "H", "dk", "dv",
                                                  "chunk"))
-    q, k, v, a, i, h0 = ssd_inputs(B, S, H, dk, dv, gates, init, dtype, gen)
+    q, k, v, a, i, h0 = ssd_inputs(B, S, H, dk, dv, gates, init, dtype, gen,
+                                   shape.get("per_head_qk", False))
     y, h = K4.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
     torch.cuda.synchronize()
     y32, h32 = K4.ssd_scan_ref(q.float(), k.float(), v.float(), a, i,
@@ -857,10 +878,14 @@ def ssd_case(K4, name, shape, gates, init, dtype, gen):
                                           and torch.equal(h, h2))
         check(row["bitwise_equal_rerun"], "two K4 launches differ")
         del y2, h2
-        bw, peak = peaks(name)
+        row["device_kernel"] = one_kernel(
+            lambda: K4.ssd_scan(q, k, v, a, i, chunk=chunk,
+                                initial_state=h0), "ssd_chunk_scan")
+        bw, f32_peak = peaks(name)
         nbytes = K4.hbm_bytes(B, S, H, dk, dv, v.element_size())["minimum"]
         fl = K4.flops(B, S, H, dk, dv, chunk)
-        t_bytes, t_ops = nbytes / bw * 1e3, fl / peak * 1e3
+        row.update(K4.bound(B, S, H, dk, dv, chunk, v.element_size(), bw,
+                            tensor_peak(name), f32_peak))
         row.update({
             # v and y alone (>= 235 MB) exceed the 50 MB L2: every launch
             # streams from HBM, as in the prefill, where other layers ran
@@ -868,15 +893,9 @@ def ssd_case(K4, name, shape, gates, init, dtype, gen):
             "ms": time_ms(lambda: K4.ssd_scan(q, k, v, a, i, chunk=chunk)),
             "plain_ms": time_ms(lambda: K4.ssd_scan_ref(q, k, v, a, i,
                                                         chunk=chunk)),
-            "library_ms": None,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "min_bytes": nbytes, "flops": fl})
-        if v.dtype == torch.bfloat16:
-            # the redesign's target: the same work on bf16 tensor cores
-            row["tensor_core_bound_ms"] = max(t_bytes,
-                                              fl / BF16_TC_PEAK * 1e3)
+            "library_ms": None, "min_bytes": nbytes, "flops": fl})
         row["achieved_tflop_s"] = fl / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
     del q, k, v, a, i, h0, y, h, y32, h32
     torch.cuda.empty_cache()
     return row

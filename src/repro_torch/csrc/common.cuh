@@ -8,14 +8,18 @@
 //     [s*rows, (s+1)*rows) of its column tile into partial[s, :], and a
 //     second launch sums the partials in split order (K1 and K3);
 //   * the arrival step of a one-launch reduction (K2, K5): the blocks of a
-//     group publish partial sums, and the last to arrive combines them.
+//     group publish partial sums, and the last to arrive combines them;
+//   * the tensor-core pieces of K4 and K5: cp.async copies, ldmatrix,
+//     mma.sync m16n8k16 on bf16 and the split of f32 values into bf16
+//     parts whose products keep f32's accuracy.
 //
 // No float atomics anywhere. The scores these kernels feed are committed
 // on-chain as <f8 inside Merkle-hashed records, so every sum has one fixed
 // order and two runs on the same inputs are bit-identical.
 //
-// Everything here is a template, so each .cu that includes it gets its own
-// instantiations and the objects link into one library without clashes.
+// Everything here is a template or an inline device function, so each .cu
+// that includes it gets its own copy and the objects link into one library
+// without clashes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -206,6 +210,108 @@ __device__ __forceinline__ bool last_to_arrive(int* counter, int n) {
   __syncthreads();
   if (last) __threadfence();             // every block's partials are in
   return last;
+}
+
+// -- tensor-core pieces (K4, K5) ---------------------------------------------
+
+// 16 bytes from global to shared memory, asynchronously (L1 bypassed), both
+// 16-byte aligned: only the first `bytes` (0..16) are read and the rest are
+// set to zero (gmem must be a valid address). Completes with the thread's
+// commit group.
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 int bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of the calling thread's commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Raise `kernel`'s dynamic shared memory limit to `bytes` on the current
+// device, once per device: `raised` is the caller's own bit mask (one per
+// kernel), so the attribute call stays off the launch path after the first.
+template <typename K>
+cudaError_t raise_smem_once(K kernel, int bytes, uint32_t& raised) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || dev >= 32 || (raised >> dev & 1u)) return err;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) raised |= 1u << dev;
+  return err;
+}
+
+__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// (x, y) as NP bf16 pairs whose sum is (x, y) to about 8 * NP bits: part
+// i rounds what parts 0 .. i - 1 left.
+template <int NP>
+__device__ __forceinline__ void split_bf16(float x, float y,
+                                           uint32_t (&part)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+    const float2 f = __bfloat1622float2(h);
+    part[i] = *reinterpret_cast<uint32_t*>(&h);
+    x -= f.x;
+    y -= f.y;
+  }
+}
+
+// c += a b for one m16n8k16 tile: a the 16 x 16 bf16 A fragment, (b0, b1)
+// the 16 x 8 bf16 B fragment, c the f32 accumulators (PTX ISA layouts).
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += (sum_i a[i]) (sum_j b[j]) over the part products i + j < max(NA, NB),
+// in one fixed order; b[j] is the pair (b0[j], b1[j]) of a B fragment.
+template <int NA, int NB>
+__device__ __forceinline__ void mma_parts(float (&c)[4],
+                                          const uint32_t (&a)[NA][4],
+                                          const uint32_t (&b0)[NB],
+                                          const uint32_t (&b1)[NB]) {
+  constexpr int kTerms = NA > NB ? NA : NB;
+#pragma unroll
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      if (i + j < kTerms) mma(c, a[i], b0[j], b1[j]);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
 }
 
 }  // namespace rt

@@ -58,111 +58,21 @@
 
 namespace {
 
+using rt::cp_async16_zfill;
+using rt::cp_async_commit;
+using rt::cp_async_wait;
+using rt::ldmatrix_x4;
+using rt::ldmatrix_x4_trans;
+using rt::mma_parts;
+using rt::raise_smem_once;
+using rt::split_bf16;
+using rt::store_out;
+
 constexpr int kWarps = 4;
 constexpr int kSwaThreads = 32 * kWarps;
 constexpr int kSlots = 16;       // slots per warp tile (one mma k-step of P v)
 constexpr int kMaxChunks = 8;    // chunks (blocks) of one (b, kv)
 constexpr int kMaxG = 16;        // query rows per KV head: the mma's 16 rows
-
-// 16 bytes from global to shared memory, asynchronously (L1 bypassed), both
-// 16-byte aligned: only the first `bytes` (0..16) are read and the rest are
-// set to zero (gmem must be a valid address). Completes with the thread's
-// commit group.
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
-                                                 int bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of the calling thread's commit groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Raise `kernel`'s dynamic shared memory limit to `bytes` on the current
-// device, once per device: `raised` is the caller's own bit mask (one per
-// kernel), so the attribute call stays off the launch path after the first.
-template <typename K>
-cudaError_t raise_smem_once(K kernel, int bytes, uint32_t& raised) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || dev >= 32 || (raised >> dev & 1u)) return err;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) raised |= 1u << dev;
-  return err;
-}
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// (x, y) as NP bf16 pairs whose sum is (x, y) to about 8 * NP bits: part
-// i rounds what parts 0 .. i - 1 left.
-template <int NP>
-__device__ __forceinline__ void split_bf16(float x, float y,
-                                           uint32_t (&part)[NP]) {
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-    const float2 f = __bfloat1622float2(h);
-    part[i] = *reinterpret_cast<uint32_t*>(&h);
-    x -= f.x;
-    y -= f.y;
-  }
-}
-
-// c += a b for one m16n8k16 tile: a the 16 x 16 bf16 A fragment, (b0, b1)
-// the 16 x 8 bf16 B fragment, c the f32 accumulators (PTX ISA layouts).
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += (sum_i a[i]) (sum_j b[j]) over the part products i + j < max(NA, NB),
-// in one fixed order; b[j] is the pair (b0[j], b1[j]) of a B fragment.
-template <int NA, int NB>
-__device__ __forceinline__ void mma_parts(float (&c)[4],
-                                          const uint32_t (&a)[NA][4],
-                                          const uint32_t (&b0)[NB],
-                                          const uint32_t (&b1)[NB]) {
-  constexpr int kTerms = NA > NB ? NA : NB;
-#pragma unroll
-  for (int i = 0; i < NA; ++i)
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-      if (i + j < kTerms) mma(c, a[i], b0[j], b1[j]);
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
 
 // Shapes and shared memory of one instantiation, sizes in bytes. kQ, kK:
 // bf16 parts of q and p, of k and v. A ring row (one slot's K or V row) is

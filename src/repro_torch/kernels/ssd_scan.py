@@ -11,6 +11,17 @@ dtype and the final state (B, H, dk, dv) in float32, starting from
 ``initial_state`` (zeros if None). ``ssd_scan`` launches the CUDA kernel
 (``csrc/ssd_scan.cu``) for tensors on the card and runs the plain version,
 ``ssd_scan_ref``, for tensors on the CPU.
+
+The kernel does its four products on the tensor cores (bf16 ``mma.sync``,
+f32 sums), one launch per call, one block per (batch, head) walking the
+chunks with the state in f32. bf16 q, k, v are exact operands; the gated
+scores, the carried state and w·v are f32 by nature and enter as two bf16
+parts each (three, and q, k, v too, for f32 inputs; f32 at dk or dv > 64
+keeps its products on the ordinary cores). ``ssd_scan_ref(...,
+parts=n)`` rounds those operands the same way, so the CPU can show what the
+split costs against the card tolerance below; the planted fault
+``p_one_part`` is the gated scores with one part only. ``bound`` gives the
+least time the card could take for a call.
 """
 from __future__ import annotations
 
@@ -30,7 +41,10 @@ MAX_D = 128              # dk and dv the kernel takes
 # The two sum in different orders. The largest gap comes from the chunk's
 # cumsum of the gates: at zamba2's gates |cum| reaches ~900, where one f32
 # rounding moves exp(cum_t - cum_s) by ~1e-4, 1.8e-5 of max|y| in a CPU
-# emulation of the kernel's scan order. RTOL is 0 but for the kernel's bf16
+# emulation of the kernel's scan order. The kernel's two-part bf16 split
+# of the gated scores, the state and w·v adds ~2^-17 of each term (the CPU
+# emulation ``parts=2`` stays inside the check); a single part, 2^-9,
+# does not (the fault ``p_one_part``). RTOL is 0 but for the kernel's bf16
 # y, which it rounds once more, by at most half a bf16 step (2^-8 of the
 # value).
 ATOL_REL = 1e-4
@@ -41,7 +55,22 @@ RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8}
 FAULTS = ("carry_reset",            # the state is dropped at every chunk
           "decay_off_by_one",       # inter-chunk decay one step short
           "no_diagonal",            # intra-chunk mask drops s == t
-          "final_state_stale")      # final state misses the last chunk
+          "final_state_stale",      # final state misses the last chunk
+          "p_one_part")             # gated scores rounded once to bf16
+
+
+def bf16_parts(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The f32 value of x split into n bf16 parts, part j rounding what
+    parts 0 .. j - 1 left: what the kernel's tensor cores multiply for an
+    operand that is f32 by nature. One part is x rounded to bf16 (8 bits),
+    two keep ~16 bits, three ~24."""
+    out = torch.zeros_like(x)
+    rest = x
+    for _ in range(n):
+        part = rest.to(torch.bfloat16).to(x.dtype)
+        out = out + part
+        rest = rest - part
+    return out
 
 
 def segsum(a: torch.Tensor) -> torch.Tensor:
@@ -57,10 +86,14 @@ def segsum(a: torch.Tensor) -> torch.Tensor:
 def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  a: torch.Tensor, i: torch.Tensor, *, chunk: int,
                  initial_state: Optional[torch.Tensor] = None,
-                 fault: Optional[str] = None):
+                 fault: Optional[str] = None, parts: Optional[int] = None):
     """Plain PyTorch version, the reference's chunked algorithm
     (``ssm.chunked_decay_attention``) in f32 → (y in v's dtype, final state
-    f32). ``fault`` (one of ``FAULTS``) plants that error."""
+    f32). ``fault`` (one of ``FAULTS``) plants that error. ``parts``
+    rounds the three operands that the kernel splits into bf16 parts —
+    the gated scores, the carried state in q·h and w·v in the state
+    update — to that many parts (``bf16_parts``), so the CPU can show
+    what the split costs against the card tolerance."""
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}; known: {FAULTS}")
     B, S, H, dk = q.shape
@@ -81,13 +114,17 @@ def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     L = torch.exp(seg)
     scores = torch.einsum("bnqhd,bnshd->bnhqs", qc, kc)
     gated = scores * L * ic.movedim(3, 2)[..., None, :]
+    if parts is not None or fault == "p_one_part":
+        gated = bf16_parts(gated, 1 if fault == "p_one_part" else parts)
     y_intra = torch.einsum("bnhqs,bnshv->bnqhv", gated, vc)
 
     # chunk summary states: Σ_j exp(Σ_{l>j} a) i_j k_j ⊗ v_j
     cum = torch.cumsum(ac, dim=2)                           # (B,nc,Q,H)
     total = cum[:, :, -1:, :]
-    state_n = torch.einsum("bnqh,bnqhd,bnqhv->bnhdv",
-                           torch.exp(total - cum) * ic, kc, vc)
+    wv = (torch.exp(total - cum) * ic)[..., None] * vc      # (B,nc,Q,H,dv)
+    if parts is not None:
+        wv = bf16_parts(wv, parts)
+    state_n = torch.einsum("bnqhd,bnqhv->bnhdv", kc, wv)
 
     # inter-chunk recurrence over the chunk index
     chunk_decay = torch.exp(total[:, :, 0, :])              # (B,nc,H)
@@ -105,6 +142,8 @@ def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         h = h * chunk_decay[:, n, :, None, None] + state_n[:, n]
     h_before = torch.stack(h_before, dim=1)                 # (B,nc,H,dk,dv)
 
+    if parts is not None:
+        h_before = bf16_parts(h_before, parts)
     y_inter = torch.einsum("bnqhd,bnhdv->bnqhv", qc, h_before)
     y_inter = y_inter * decay_from_start[..., None]
     y = (y_intra + y_inter).reshape(B, S, H, dv)
@@ -217,3 +256,20 @@ def flops(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> int:
     pairs = chunk * (chunk + 1) // 2
     per_chunk = pairs * (dk + dv) + 2 * chunk * dk * dv
     return 2 * B * H * (S // chunk) * per_chunk
+
+
+def bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
+          itemsize: int, hbm_bytes_per_s: float, tensor_flops_per_s: float,
+          f32_flops_per_s: float) -> dict:
+    """The least time (ms) the card could take for one K4 call: the larger
+    of its minimum HBM bytes over the memory rate and its flops over the
+    bf16 tensor cores' dense rate, in either dtype (the kernel's products
+    run there). ``f32_core_bound_ms`` is the same work with the flops on
+    the ordinary f32 cores, the bound of the first, ordinary-core design."""
+    t_bytes = hbm_bytes(B, S, H, dk, dv, itemsize)["minimum"] / \
+        hbm_bytes_per_s * 1e3
+    fl = flops(B, S, H, dk, dv, chunk)
+    t_ops = fl / tensor_flops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "f32_core_bound_ms": max(t_bytes, fl / f32_flops_per_s * 1e3)}

@@ -203,8 +203,10 @@ def test_swa_decode_is_one_deterministic_launch_on_card(cuda, dtype, cur):
 # K4 against ssd_scan_ref: (B, S, H, dk, dv, chunk, gates, initial state).
 # zamba2-7b's prefill shape with its gates and with gentle ones (a chunk
 # keeps >= e^-2.6 of the state, so the carry across chunks shows), the smoke
-# shape, one chunk only, an initial state, the 128-wide instantiation, and
-# chunks that are no multiple of the 32-row tile or shorter than a warp.
+# shape, one chunk only, an initial state, the 128-wide instantiation,
+# chunks that are no multiple of the 32-row tile or shorter than a warp, and
+# a chunk of 40 rows at dk = dv = 64 (tensor-map boxes of 40 rows in a stage
+# padded to 48).
 SSD_CASES = [(4, 4096, 112, 64, 64, 128, "model", False),
              (4, 4096, 112, 64, 64, 128, "gentle", False),
              (2, 128, 8, 16, 64, 64, "gentle", False),
@@ -212,19 +214,26 @@ SSD_CASES = [(4, 4096, 112, 64, 64, 128, "model", False),
              (2, 256, 8, 64, 64, 128, "gentle", True),
              (1, 256, 4, 128, 128, 128, "gentle", True),
              (2, 160, 3, 24, 40, 80, "gentle", True),
-             (1, 60, 2, 8, 8, 20, "model", False)]
+             (1, 60, 2, 8, 8, 20, "model", False),
+             (2, 160, 4, 64, 64, 40, "model", True)]
 
 
-def _ssd_inputs(B, S, H, dk, dv, gates, init, dtype, dev, seed=0):
+def _ssd_inputs(B, S, H, dk, dv, gates, init, dtype, dev, seed=0,
+                per_head=False):
     """The model's operands: q and k as head-stride-0 views of one (B, S,
-    2 dk) projection (Mamba2's C and B), v (B, S, H, dv), f32 gates with
+    2 dk) projection (Mamba2's C and B), or with ``per_head`` their own
+    values for every head, v (B, S, H, dv), f32 gates with
     i = softplus(N(0, 1)) and a = i * -linspace(1, 16, H) ("model", as at
     zamba2's init) or a ~ U(-0.02, 0) ("gentle")."""
     gen = torch.Generator(device=dev).manual_seed(seed + S + H + dk)
     dt = getattr(torch, dtype)
-    bc = torch.randn((B, S, 2 * dk), generator=gen, device=dev).to(dt)
-    k = bc[..., :dk][:, :, None].expand(B, S, H, dk)
-    q = bc[..., dk:][:, :, None].expand(B, S, H, dk)
+    if per_head:
+        k = torch.randn((B, S, H, dk), generator=gen, device=dev).to(dt)
+        q = torch.randn((B, S, H, dk), generator=gen, device=dev).to(dt)
+    else:
+        bc = torch.randn((B, S, 2 * dk), generator=gen, device=dev).to(dt)
+        k = bc[..., :dk][:, :, None].expand(B, S, H, dk)
+        q = bc[..., dk:][:, :, None].expand(B, S, H, dk)
     v = torch.randn((B, S, H, dv), generator=gen, device=dev).to(dt)
     i = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
     if gates == "model":
@@ -241,16 +250,26 @@ def _ssd_plain_f32(q, k, v, a, i, h0, chunk, fault=None):
                             chunk=chunk, initial_state=h0, fault=fault)
 
 
+# The same with q and k of their own for every head (head stride dk): at
+# dk = dv = 64 in bf16 their tensor maps then take the head axis.
+SSD_PER_HEAD_CASES = [(2, 256, 8, 64, 64, 128, "gentle", True),
+                      (2, 160, 4, 64, 64, 40, "model", False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,dk,dv,chunk,gates,init", SSD_CASES)
+@pytest.mark.parametrize(
+    "B,S,H,dk,dv,chunk,gates,init,per_head",
+    [pytest.param(*c, False, id="-".join(map(str, c))) for c in SSD_CASES]
+    + [pytest.param(*c, True, id="-".join(map(str, c)) + "-per_head")
+       for c in SSD_PER_HEAD_CASES])
 def test_ssd_scan_matches_plain_version_on_card(cuda, B, S, H, dk, dv, chunk,
-                                                gates, init, dtype):
+                                                gates, init, per_head, dtype):
     """y and the final state within ``ssd_scan.excess`` of the plain
     version's f32 result on the same card inputs."""
     q, k, v, a, i, h0 = _ssd_inputs(B, S, H, dk, dv, gates, init, dtype,
-                                    cuda)
-    assert q.stride(2) == 0
+                                    cuda, per_head=per_head)
+    assert q.stride(2) == (dk if per_head else 0)
     before = ssd_scan.ssd_scan.launches
     y, h = ssd_scan.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
     torch.cuda.synchronize()
@@ -285,6 +304,20 @@ def test_ssd_scan_is_bitwise_deterministic_on_card(cuda):
     y1, h1 = ssd_scan.ssd_scan(q, k, v, a, i, chunk=128, initial_state=h0)
     y2, h2 = ssd_scan.ssd_scan(q, k, v, a, i, chunk=128, initial_state=h0)
     assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_is_one_launch_on_card(cuda, dtype):
+    """4 calls make 4 kernel launches and no copy or memset, and every
+    device record the profiler keeps is K4's kernel."""
+    q, k, v, a, i, h0 = _ssd_inputs(2, 512, 8, 64, 64, "model", True, dtype,
+                                    cuda)
+    enqueued, device = _build.launch_records(
+        lambda: ssd_scan.ssd_scan(q, k, v, a, i, chunk=128,
+                                  initial_state=h0))
+    assert enqueued == ["cudaLaunchKernel"] * 4, enqueued
+    assert all("ssd_chunk_scan" in n for n in device), device
 
 
 @pytest.mark.cuda

@@ -211,6 +211,59 @@ def test_ssd_accounting_at_the_serve_shape():
     assert fl == 2 * 4 * 112 * 32 * (128 * 129 // 2 * 128 + 2 * 128 * 64 * 64)
 
 
+def test_ssd_bound_at_the_serve_shape():
+    """K4's bound at zamba2-7b's prefill shape on an H100 SXM (3.35 TB/s,
+    989 TFLOP/s dense bf16, 67 TFLOP/s f32): its bytes bound it in both
+    dtypes, 495,976,448 B in bf16 and 969,932,800 B in f32; the f32-core
+    figure is the ordinary-core design's bound, 0.901 ms."""
+    shape = (4, 4096, 112, 64, 64, 128)
+    assert ssd_scan.hbm_bytes(*shape[:5], 2)["minimum"] == 495_976_448
+    assert ssd_scan.hbm_bytes(*shape[:5], 4)["minimum"] == 969_932_800
+    bf = ssd_scan.bound(*shape, 2, 3.35e12, 989e12, 67e12)
+    f32 = ssd_scan.bound(*shape, 4, 3.35e12, 989e12, 67e12)
+    assert bf["bound_by"] == f32["bound_by"] == "bytes"
+    assert bf["bound_ms"] == pytest.approx(495_976_448 / 3.35e9)
+    assert f32["bound_ms"] == pytest.approx(969_932_800 / 3.35e9)
+    assert round(bf["bound_ms"], 3) == 0.148
+    assert round(f32["bound_ms"], 3) == 0.290
+    assert bf["f32_core_bound_ms"] == pytest.approx(60_364_423_168 / 67e9)
+    assert round(bf["f32_core_bound_ms"], 3) == 0.901
+
+
+@pytest.mark.parametrize("gates", ["model", "gentle"])
+def test_two_part_split_stays_inside_the_card_tolerance(gates):
+    """The kernel's bf16 path splits the gated scores P, the carried state
+    h and w·v into two bf16 parts each. Emulated in the plain version
+    (``parts=2``) at a cut of the serve shape (S 512, H 8, dk = dv = 64,
+    chunk 128, bf16 operands), that stays inside ``ssd_scan.excess``
+    around the plain f32 result, while P rounded once to bf16 (the fault
+    ``p_one_part``, a lost low part) falls outside it. Gates as the model
+    draws them (i = softplus(N(0, 1)), a = i · -linspace(1, 16, H)) or
+    gentle (a ~ U(-0.02, 0))."""
+    B, S, H, dk, dv, chunk = 2, 512, 8, 64, 64, 128
+    rng = np.random.default_rng(11)
+    f = np.float32
+    bc = torch.from_numpy(rng.standard_normal((B, S, 2 * dk)).astype(f))
+    bc = bc.to(torch.bfloat16)
+    k = bc[..., :dk][:, :, None].expand(B, S, H, dk)
+    q = bc[..., dk:][:, :, None].expand(B, S, H, dk)
+    v = torch.from_numpy(rng.standard_normal((B, S, H, dv)).astype(f))
+    v = v.to(torch.bfloat16)
+    i = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((B, S, H)).astype(f)))
+    a = (i * -torch.linspace(1.0, 16.0, H) if gates == "model" else
+         -0.02 * torch.from_numpy(rng.random((B, S, H)).astype(f)))
+    y32, h32 = ref.ssd_scan_ref(q.float(), k.float(), v.float(), a, i,
+                                chunk=chunk)
+    rtol = ssd_scan.RTOL[torch.bfloat16]
+    y, h = ref.ssd_scan_ref(q, k, v, a, i, chunk=chunk, parts=2)
+    assert ssd_scan.excess(y, y32, rtol) <= 0
+    assert ssd_scan.excess(h, h32) <= 0
+    fy, fh = ref.ssd_scan_ref(q, k, v, a, i, chunk=chunk,
+                              fault="p_one_part")
+    assert max(ssd_scan.excess(fy, y32, rtol), ssd_scan.excess(fh, h32)) > 0
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 block
 # ---------------------------------------------------------------------------
