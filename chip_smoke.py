@@ -13,8 +13,10 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
   kernels         K1 trust_score, K2 trust_agg, K3 fused_async_agg against
                   their plain PyTorch versions on the card at D = 21840 (the
                   paper CNN) and W in {16, 4096, 10240} f32, plus bf16 at
-                  W = 4096: error, CUDA-event times, byte bound; one K2 call
-                  must launch exactly one kernel (``one_kernel``)
+                  W = 4096: error, CUDA-event times, byte bound; one K1 or
+                  K2 call must launch exactly one kernel (``one_kernel``)
+                  and two launches give equal bits; K1's check must reject
+                  the planted faults of ``trust_score.FAULTS``
   parity          one round of ``make_fl_round`` on the card against the same
                   round on the CPU (sync and async, fused path, no dropout)
   protocol_sync   the main path: ``SDFLBProtocol.run_round`` x3 on the paper
@@ -311,6 +313,26 @@ def kernel_case(k, W, dtype, bw, f32_peak, gen):
            "streamed_bytes": hbm["total"],
            "library_ms": (time_ms(lambda: lib(*args))
                           if lib is not None and dtype == "float32" else None)}
+    if k["name"] == "trust_score":
+        from repro_torch.kernels import trust_score as K1
+        again = k["wrapper"](*args)
+        row["bitwise_equal_rerun"] = all(torch.equal(a, b)
+                                         for a, b in zip(again, got))
+        check(row["bitwise_equal_rerun"], f"two K1 launches differ, W={W}")
+        row["device_kernel"] = one_kernel(lambda: k["wrapper"](*args),
+                                          "trust_stats")
+        row["plan"] = K1.plan(W, D_PAPER, u.element_size())._asdict()
+        # each planted fault of the plain version against the plain
+        # version: its largest distance over the tolerance (> 1 rejects)
+        row["fault_margins"] = {}
+        for fault in K1.FAULTS:
+            bad = K1.trust_score_ref(*args, fault=fault)
+            row["fault_margins"][fault] = max(
+                float((b - e).abs().max()) / (RTOL * max(1.0, float(
+                    e.abs().max()))) for b, e in zip(bad, want))
+            check(row["fault_margins"][fault] > 1,
+                  f"K1's check misses the fault {fault}, W={W} {dtype}")
+        del again
     if k["name"] == "trust_agg":
         from repro_torch.kernels import trust_agg as K2
         again = k["wrapper"](*args)
@@ -410,7 +432,7 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-TRUST_KERNELS = ("split_colsum", "finish_colsum", "row_stats", "trust_agg")
+TRUST_KERNELS = ("trust_stats", "trust_agg", "split_colsum", "finish_colsum")
 
 
 def device_profile(prof, wall_s, ours=TRUST_KERNELS, label="trust_kernels_s"):

@@ -19,6 +19,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from repro_torch import mathfn
 from repro_torch.configs.base import FederationConfig
 from repro_torch.kernels.trust_score import trust_score_stats
 
@@ -76,13 +77,13 @@ def scores_from_stats(stats: TrustStats,
                     + stats.sq_u) / ((W - 1) ** 2)
     else:
         dot_loo, sq_c_loo = stats.dot, stats.sq_c.expand(1)
-    norm_u = torch.sqrt(stats.sq_u)
+    norm_u = mathfn.sqrt(stats.sq_u)
     cos = dot_loo / torch.clamp(
-        norm_u * torch.sqrt(torch.clamp(sq_c_loo, min=0.0)), min=1e-12)
+        norm_u * mathfn.sqrt(torch.clamp(sq_c_loo, min=0.0)), min=1e-12)
     cos_term = torch.clamp(cos, 0.0, 1.0)
 
     med = median(norm_u)
-    norm_term = torch.exp(-torch.abs(torch.log(
+    norm_term = mathfn.exp(-torch.abs(mathfn.log(
         torch.clamp(norm_u, min=1e-12) / torch.clamp(med, min=1e-12))))
 
     best = torch.clamp(stats.loss_delta.max(), min=1e-12)

@@ -1,15 +1,12 @@
-// Shared pieces of the trust-round kernels (trust_score.cu, trust_agg.cu,
-// fused_async_agg.cu):
+// Shared pieces of the port's kernels:
 //
-//   * f32 loads of f32 or bf16 rows, 16 bytes per instruction when the
-//     row length and the pointers allow it (the host picks the path);
-//   * a block sum in one fixed order (warp shuffles, then warp 0);
-//   * the W-split column reduction: block (x, s) sums rows
-//     [s*rows, (s+1)*rows) of its column tile into partial[s, :], and a
-//     second launch sums the partials in split order (K1 and K3);
-//   * the arrival step of a one-launch reduction (K2, K5): the blocks of a
-//     group publish partial sums, and the last to arrive combines them;
-//   * the tensor-core pieces of K4 and K5: cp.async copies, ldmatrix,
+//   * f32 widening of bf16 values and 16-byte f32 stores;
+//   * the arrival step of a one-launch reduction (K1, K2, K5): the blocks of
+//     a group publish partial sums, and the last to arrive combines them;
+//   * mbarriers and the tensor-map encoder of the bulk copy engine (K1,
+//     K4);
+//   * cp.async copies (K4, K5);
+//   * the tensor-core pieces of K4 and K5: ldmatrix,
 //     mma.sync m16n8k16 on bf16 and the split of f32 values into bf16
 //     parts whose products keep f32's accuracy.
 //
@@ -17,43 +14,22 @@
 // on-chain as <f8 inside Merkle-hashed records, so every sum has one fixed
 // order and two runs on the same inputs are bit-identical.
 //
-// Everything here is a template or an inline device function, so each .cu
-// that includes it gets its own copy and the objects link into one library
+// Everything here is a template or an inline function, so each .cu that
+// includes it gets its own copy and the objects link into one library
 // without clashes.
 #pragma once
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace rt {
 
-constexpr int kThreads = 256;   // threads per block, every kernel
-constexpr int kMaxRows = 256;   // rows per W-split (weights/keep in smem)
-
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-
-// N consecutive elements at p, widened to f32. When N elements fill whole
-// 16-byte words the load is vectorised (p must then be 16-byte aligned).
-template <typename T, int N>
-__device__ __forceinline__ void load_f32(const T* __restrict__ p,
-                                         float (&out)[N]) {
-  if constexpr ((N * sizeof(T)) % 16 == 0) {
-    constexpr int kPer = 16 / sizeof(T);
-#pragma unroll
-    for (int c = 0; c < N / kPer; ++c) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p) + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) out[c * kPer + i] = to_f32(e[i]);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < N; ++i) out[i] = to_f32(p[i]);
-  }
 }
 
 template <int N>
@@ -70,124 +46,12 @@ __device__ __forceinline__ void store_f32(float* __restrict__ p,
   }
 }
 
-// Sum of v over the block (blockDim.x == kThreads) in a fixed order; the
-// result is valid in thread 0. Every thread of the block must call it.
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  __syncthreads();                       // scratch may hold a previous sum
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  v = threadIdx.x < kThreads / 32 ? scratch[threadIdx.x] : 0.f;
-  if (warp == 0) {
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      v += __shfl_down_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
-
-// Block (x, s) owns columns [x*kThreads*N, (x+1)*kThreads*N), N per
-// thread, and rows [s*rows, min(W, (s+1)*rows)). For each of its rows r, in
-// order, it forms t = u[r] (+ pending[r] when kPending), writes
-// new_pending[r] = t * keep[r] (when kPending), and accumulates
-// weight[r] * t (t alone unless kWeighted) into partial[s, :].
-// In the vectorised path D % N == 0, so a thread's N columns never straddle
-// the end of a row.
-template <typename T, int N, bool kWeighted, bool kPending>
-__global__ void __launch_bounds__(kThreads)
-split_colsum(const T* __restrict__ u, const float* __restrict__ pending,
-             const float* __restrict__ weights,
-             const float* __restrict__ keep, int W, int D, int rows,
-             float* __restrict__ partial, float* __restrict__ new_pending) {
-  __shared__ float w_s[kMaxRows];
-  __shared__ float k_s[kMaxRows];
-  const int r0 = blockIdx.y * rows;
-  const int r1 = min(W, r0 + rows);
-  for (int i = threadIdx.x; i < r1 - r0; i += kThreads) {
-    if constexpr (kWeighted) w_s[i] = weights[r0 + i];
-    if constexpr (kPending) k_s[i] = keep[r0 + i];
-  }
-  __syncthreads();
-  const int64_t d0 = ((int64_t)blockIdx.x * kThreads + threadIdx.x) * N;
-  if (d0 >= D) return;
-  float acc[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
-#pragma unroll 4
-  for (int r = r0; r < r1; ++r) {
-    const int64_t off = (int64_t)r * D + d0;
-    float t[N];
-    load_f32<T, N>(u + off, t);
-    if constexpr (kPending) {
-      float p[N], q[N];
-      load_f32<float, N>(pending + off, p);
-#pragma unroll
-      for (int i = 0; i < N; ++i) {
-        t[i] += p[i];
-        q[i] = t[i] * k_s[r - r0];
-      }
-      store_f32<N>(new_pending + off, q);
-    }
-    if constexpr (kWeighted) {
-      const float w = w_s[r - r0];
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] += w * t[i];
-    } else {
-#pragma unroll
-      for (int i = 0; i < N; ++i) acc[i] += t[i];
-    }
-  }
-  store_f32<N>(partial + (int64_t)blockIdx.y * D + d0, acc);
-}
-
-// out[d] = (sum over s < S of partial[s, d], in split order) / divisor.
-template <int kUnused = 0>
-__global__ void __launch_bounds__(kThreads)
-finish_colsum(const float* __restrict__ partial, int S, int D, float divisor,
-              float* __restrict__ out) {
-  const int64_t d = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (d >= D) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += partial[(int64_t)s * D + d];
-  out[d] = acc / divisor;
-}
-
 inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-inline int cdiv(int64_t a, int64_t b) { return (int)((a + b - 1) / b); }
-
-// Both launches of the W-split column sum on `stream`: out = sum of the
-// (weighted) rows / divisor, partial is (ceil(W/rows), D) f32 scratch.
-// Returns the first launch error, or cudaSuccess.
-template <typename T, bool kWeighted, bool kPending>
-cudaError_t launch_colsum(const T* u, const float* pending,
-                          const float* weights, const float* keep, int W,
-                          int D, int rows, float* partial, float* new_pending,
-                          float divisor, float* out, cudaStream_t stream) {
-  if (W < 1 || D < 1 || rows < 1 || rows > kMaxRows)
-    return cudaErrorInvalidValue;
-  const int S = cdiv(W, rows);
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec = D % kVec == 0 && aligned16(u) && aligned16(partial) &&
-                   aligned16(pending) && aligned16(new_pending);
-  if (vec) {
-    const dim3 grid(cdiv(D, (int64_t)kThreads * kVec), S);
-    split_colsum<T, kVec, kWeighted, kPending><<<grid, kThreads, 0, stream>>>(
-        u, pending, weights, keep, W, D, rows, partial, new_pending);
-  } else {
-    const dim3 grid(cdiv(D, kThreads), S);
-    split_colsum<T, 1, kWeighted, kPending><<<grid, kThreads, 0, stream>>>(
-        u, pending, weights, keep, W, D, rows, partial, new_pending);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  finish_colsum<0><<<cdiv(D, kThreads), kThreads, 0, stream>>>(partial, S, D,
-                                                               divisor, out);
-  return cudaGetLastError();
+__host__ __device__ __forceinline__ int cdiv(int64_t a, int64_t b) {
+  return (int)((a + b - 1) / b);
 }
 
 // The arrival step of a reduction inside one launch: `n` blocks share the
@@ -212,7 +76,56 @@ __device__ __forceinline__ bool last_to_arrive(int* counter, int n) {
   return last;
 }
 
-// -- tensor-core pieces (K4, K5) ---------------------------------------------
+// -- mbarriers and the bulk copy engine (K1, K4) -----------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// The one arrival of a phase of `bar`, which then completes once `bytes`
+// more have been copied into shared memory.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of `bar` with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry
+// point query (no link to libcuda); null where it is missing
+inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &found) == cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// -- cp.async and the tensor-core pieces (K4, K5) ----------------------------
 
 // 16 bytes from global to shared memory, asynchronously (L1 bypassed), both
 // 16-byte aligned: only the first `bytes` (0..16) are read and the rest are

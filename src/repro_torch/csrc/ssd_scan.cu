@@ -80,6 +80,12 @@
 
 namespace {
 
+using rt::mbar_expect;
+using rt::mbar_init;
+using rt::mbar_wait;
+using rt::smem_u32;
+using rt::tensor_map_encoder;
+
 // -- the ordinary-core design (f32 at dk or dv > 64) -------------------------
 //
 // The first design: one block of 256 threads per (b, h), the state in f32
@@ -435,38 +441,6 @@ struct Tc {
            2 * 4 * gate_floats(QP) + 16 + (kSwz ? 1024 : 0);
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// The one arrival of a phase of `bar`, which then completes once `bytes`
-// more have been copied into shared memory.
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // One box of the tensor map `map` at coordinates c (3 or 4 of them, the
 // fastest first) into shared memory, counted on `bar`.
@@ -1046,21 +1020,6 @@ ssd_chunk_scan_mma(const T* __restrict__ q, const T* __restrict__ k,
         if (d < dk && col < dv)
           h_out[((int64_t)bh * dk + d) * dv + col] = hs[m][nn][e];
       }
-}
-
-// cuTensorMapEncodeTiled of libcuda, found through the runtime's entry
-// point query (no link to libcuda); null where it is missing
-PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
-  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                   cudaEnableDefault, &found) == cudaSuccess &&
-                   found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
-  return fn;
 }
 
 // A tensor map over a bf16 operand (B, S, H, 64) with element strides

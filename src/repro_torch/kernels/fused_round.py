@@ -1,7 +1,8 @@
 """The fused trust round: K3, the async aggregate and flush, and the HBM
 accounting of the whole fused chain.
 
-The round streams the (W, D) update matrix through the trust kernels:
+The round streams the (W, D) update matrix through the trust kernels, each
+reading it from HBM once, so twice a round, as the TPU chain does:
 
   K1  ``trust_score.trust_score_stats``  dot / sq_u / sq_c
   (O(W) score and weight math in ``core.trust`` / ``core.async_agg``)
@@ -78,7 +79,8 @@ def hbm_bytes(W: int, D: int, itemsize: int) -> dict:
 def streamed_bytes(W: int, D: int, dtype: torch.dtype, *,
                    async_mode: bool = False) -> dict:
     """Per-round HBM traffic of the fused chain (K1, then K2 or K3) in the
-    port's own geometry. Returns {update_read, other, total} in bytes."""
+    port's own geometry: each kernel's ``hbm_bytes``, the update matrix
+    once each. Returns {update_read, other, total} in bytes."""
     isz = torch.empty((), dtype=dtype).element_size()
     parts = [trust_score.hbm_bytes(W, D, isz),
              (hbm_bytes if async_mode else trust_agg.hbm_bytes)(W, D, isz)]
@@ -88,8 +90,8 @@ def streamed_bytes(W: int, D: int, dtype: torch.dtype, *,
 
 def update_passes(W: int, D: int, dtype: torch.dtype, *,
                   async_mode: bool = False) -> float:
-    """How many times the fused chain streams the W×D update volume: 3 in
-    the port (K1's two passes, then K2 or K3), against the TPU chain's 2."""
+    """How many times the fused chain streams the W×D update volume: 2 (K1,
+    then K2 or K3), as in the TPU chain."""
     isz = torch.empty((), dtype=dtype).element_size()
     return streamed_bytes(W, D, dtype, async_mode=async_mode)[
         "update_read"] / (W * D * isz)

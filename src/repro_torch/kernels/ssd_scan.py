@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import mathfn
 from repro_torch.kernels import _build
 
 MAX_CHUNK = 128          # chunk positions the kernel takes
@@ -111,7 +112,7 @@ def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if fault == "no_diagonal":
         seg = seg + torch.diag(torch.full((chunk,), float("-inf"),
                                           device=q.device))
-    L = torch.exp(seg)
+    L = mathfn.exp(seg)
     scores = torch.einsum("bnqhd,bnshd->bnhqs", qc, kc)
     gated = scores * L * ic.movedim(3, 2)[..., None, :]
     if parts is not None or fault == "p_one_part":
@@ -121,17 +122,17 @@ def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # chunk summary states: Σ_j exp(Σ_{l>j} a) i_j k_j ⊗ v_j
     cum = torch.cumsum(ac, dim=2)                           # (B,nc,Q,H)
     total = cum[:, :, -1:, :]
-    wv = (torch.exp(total - cum) * ic)[..., None] * vc      # (B,nc,Q,H,dv)
+    wv = (mathfn.exp(total - cum) * ic)[..., None] * vc     # (B,nc,Q,H,dv)
     if parts is not None:
         wv = bf16_parts(wv, parts)
     state_n = torch.einsum("bnqhd,bnqhv->bnhdv", kc, wv)
 
     # inter-chunk recurrence over the chunk index
-    chunk_decay = torch.exp(total[:, :, 0, :])              # (B,nc,H)
-    decay_from_start = torch.exp(cum)
+    chunk_decay = mathfn.exp(total[:, :, 0, :])             # (B,nc,H)
+    decay_from_start = mathfn.exp(cum)
     if fault == "decay_off_by_one":
-        chunk_decay = torch.exp(total[:, :, 0, :] - ac[:, :, -1, :])
-        decay_from_start = torch.exp(cum - ac)
+        chunk_decay = mathfn.exp(total[:, :, 0, :] - ac[:, :, -1, :])
+        decay_from_start = mathfn.exp(cum - ac)
     h = (torch.zeros((B, H, dk, dv), dtype=f32, device=q.device)
          if initial_state is None else initial_state.to(f32))
     h_before = []

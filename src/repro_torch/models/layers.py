@@ -20,6 +20,7 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import mathfn
 from repro_torch.kernels.swa_decode import swa_decode
 
 Params = Dict[str, torch.Tensor]
@@ -138,8 +139,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           window)
         s.masked_fill_(~mask, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
-        p = s.sub_(m_new[..., None]).exp_()                   # in place: s dies
-        corr = torch.exp(m - m_new)
+        p = mathfn.exp_(s.sub_(m_new[..., None]))            # in place: s dies
+        corr = mathfn.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v_i.dtype).float(),
                           v_i.float())

@@ -20,6 +20,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch import mathfn
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.layers import dense_init, rms_norm
 
@@ -44,7 +45,7 @@ def decay_attention_step(q, k, v, a, i, state):
     """Single decode step. q,k: (B,H,dk); v: (B,H,dv); a,i: (B,H);
     state: (B,H,dk,dv). Returns (y (B,H,dv), new_state), both f32."""
     q, k, v = q.float(), k.float(), v.float()
-    new_state = (state * torch.exp(a)[..., None, None].float()
+    new_state = (state * mathfn.exp(a)[..., None, None].float()
                  + i[..., None, None].float() * k[..., :, None]
                  * v[..., None, :])
     y = torch.einsum("bhd,bhdv->bhv", q, new_state)
@@ -133,7 +134,7 @@ def apply_mamba2(params: Params, x, ssm_cfg, *, state=None, conv_state=None,
     B_, C_ = bc[..., :N], bc[..., N:]
 
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])                         # (H,) negative
+    A = -mathfn.exp(params["A_log"])                        # (H,) negative
     a = dt * A                                              # (B,S,H) log decay
     xh = xi.reshape(B, S, nheads, MAMBA_HEAD_DIM)
     # B_, C_ shared across heads (n_groups=1): head-stride-0 views, which K4

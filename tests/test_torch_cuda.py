@@ -57,6 +57,67 @@ def test_kernels_match_plain_versions_on_card(cuda, W, D, dtype):
             torch.testing.assert_close(g, e, rtol=0, atol=tol)
 
 
+# K1 over the W of its plans: one block a cluster (W 1 to 129), clusters of
+# 8 (W 4096) and 16 (W 10240); D = 21840 (the paper CNN) and D = 21839 (rows
+# the bulk copy engine cannot take: copied by every thread)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [21840, 21839])
+@pytest.mark.parametrize("W", [1, 7, 16, 129, 4096, 10240])
+def test_trust_score_matches_plain_version_on_card(cuda, W, D, dtype):
+    u = _inputs(W, D, dtype, cuda)[0]
+    before = trust_score.trust_score_stats.launches
+    got = trust_score.trust_score_stats(u)
+    torch.cuda.synchronize()
+    assert trust_score.trust_score_stats.launches == before + 1
+    for g, e in zip(got, ref.trust_score_ref(u)):
+        assert g.dtype == torch.float32 and g.shape == e.shape
+        tol = 1e-4 * max(1.0, float(e.abs().max()))
+        torch.testing.assert_close(g, e, rtol=0, atol=tol)
+
+
+def _k1_launches(enqueued, calls=4):
+    """One kernel launch a call, by cudaLaunchKernel (one block a cluster)
+    or by cudaLaunchKernelEx (a cluster launch), and no copy or memset."""
+    return len(enqueued) == calls and all(
+        n.startswith("cudaLaunchKernel") for n in enqueued)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,D,dtype", [(16, 21840, "float32"),
+                                       (4096, 21840, "float32"),
+                                       (4096, 21840, "bfloat16"),
+                                       (10240, 21840, "float32"),
+                                       (129, 21839, "bfloat16")])
+def test_trust_score_is_one_deterministic_launch_on_card(cuda, W, D, dtype):
+    """Two launches give the same bits, and one call is one device kernel
+    (one kernel launch, no copy or memset, among the runtime calls the
+    profiler records): the clusters' sums are combined inside the
+    launch."""
+    u = _inputs(W, D, dtype, cuda)[0]
+    a, b = trust_score.trust_score_stats(u), trust_score.trust_score_stats(u)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    enqueued, device = _build.launch_records(
+        lambda: trust_score.trust_score_stats(u))
+    assert _k1_launches(enqueued), enqueued
+    assert all("trust_stats" in n for n in device), device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [16, 4096, 10240])
+def test_trust_score_tolerance_rejects_planted_faults_on_card(cuda, W):
+    """The check above fails the plain version with each planted fault of
+    ``trust_score.FAULTS`` (the plan's last tile dropped, the consensus
+    without the last cluster rank's rows, |c|^2 of the first tile)."""
+    u = _inputs(W, 21840, "float32", cuda)[0]
+    want = ref.trust_score_ref(u)
+    for fault in trust_score.FAULTS:
+        bad = ref.trust_score_ref(u, fault=fault)
+        assert any(float((x - e).abs().max())
+                   > 1e-4 * max(1.0, float(e.abs().max()))
+                   for x, e in zip(bad, want)), fault
+
+
 # K2 over the W of its paths: one row split below 128 rows, then 2 (W 129)
 # or 8 splits combined inside the launch; D = 21840 (the paper CNN) and
 # D = 21839 (no multiple of 4 or 8: one column per thread)

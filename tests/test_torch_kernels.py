@@ -110,17 +110,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_hbm_accounting():
-    """The port's chain streams the update matrix three times (K1's two
-    passes, then K2 or K3), against the TPU chain's two."""
+    """The port's chain streams the update matrix twice (K1 once, then K2
+    or K3), as the TPU chain does."""
     W, D = 10240, 21840
     for dt in (torch.float32, torch.bfloat16):
         for am in (False, True):
-            assert fused_round.update_passes(W, D, dt, async_mode=am) == 3.0
+            assert fused_round.update_passes(W, D, dt, async_mode=am) == 2.0
     k1 = trust_score.hbm_bytes(W, D, 4)
-    assert k1["update_read"] == 2 * W * D * 4
+    assert k1["update_read"] == W * D * 4
     assert k1["minimum"] < k1["total"]
     assert _build.splits(W) == -(-W // _build.SPLIT_ROWS)
-    assert _build.SPLIT_ROWS <= 256          # kMaxRows in csrc/common.cuh
+    assert _build.SPLIT_ROWS <= 256       # kMaxRows in fused_async_agg.cu
     # K2 in one launch: the matrix once, plus its splits' f32 sums (under
     # 2 % of the matrix at W = 10240) and none with one split
     for itemsize in (4, 2):
@@ -175,6 +175,71 @@ def test_trust_agg_block_width_matches_the_kernel():
     src = (_build.CSRC / "trust_agg.cu").read_text()
     assert re.findall(r"constexpr int kThreads = (\d+);", src) == \
         [str(trust_agg.THREADS)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("D", [1, 7, 2053, 21839, 21840, 1 << 20])
+@pytest.mark.parametrize("W", [1, 7, 16, 129, 1000, 4096, 10240, 65536])
+def test_trust_score_plan_covers_every_row_and_column(W, D, itemsize):
+    """K1's launch plan: the cluster's blocks hold every row, each at least
+    one, and their rows of a strip fit the threads' registers (16 pieces a
+    thread); the strips cover every column; the clusters take one block an
+    SM and have a strip each."""
+    p = trust_score.plan(W, D, itemsize)
+    assert p.cluster in trust_score.CLUSTERS and p.strip in trust_score.STRIPS
+    assert p.cols * itemsize == p.strip
+    assert p.cluster * p.rows >= W > (p.cluster - 1) * p.rows
+    assert p.rows * p.strip <= trust_score.BLOCK_BYTES[itemsize]
+    assert (p.strips - 1) * p.cols < D <= p.strips * p.cols
+    assert 1 <= p.clusters <= p.strips
+    assert p.clusters * p.cluster <= trust_score.SMS
+
+
+def test_trust_score_plan_at_the_paper_shapes():
+    """256-byte strip rows and one block a cluster at W = 16 (132 blocks);
+    clusters of 16 at W = 4096 and, with 128-byte strip rows, at
+    W = 10240; above MAX_W the plan raises."""
+    assert trust_score.plan(16, 21840, 4)[:2] == (1, 256)
+    assert trust_score.plan(16, 21840, 4).clusters == trust_score.SMS
+    assert trust_score.plan(4096, 21840, 4)[:2] == (16, 256)
+    assert trust_score.plan(4096, 21840, 2)[:2] == (16, 256)
+    assert trust_score.plan(10240, 21840, 4)[:2] == (16, 128)
+    assert trust_score.MAX_W >= 65536
+    with pytest.raises(ValueError, match="rows"):
+        trust_score.plan(trust_score.MAX_W + 1, 21840, 4)
+
+
+def test_trust_score_constants_match_the_kernel():
+    """The plan's limits are the kernel's: THREADS ``kThreads``,
+    ROWS_A_THREAD ``rows_a_thread`` and the widest strip ``kMaxStrip`` in
+    csrc/trust_score.cu."""
+    import re
+    src = (_build.CSRC / "trust_score.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+    assert const("kThreads") == trust_score.THREADS
+    assert const("kMaxStrip") == max(trust_score.STRIPS)
+    f32, bf16 = re.search(r"return sizeof\(T\) == 4 \? (\d+) : (\d+);",
+                          src).groups()
+    assert trust_score.ROWS_A_THREAD == {4: int(f32), 2: int(bf16)}
+
+
+@pytest.mark.parametrize("W", [16, 600])
+def test_trust_score_tolerance_rejects_planted_faults(W):
+    """The card's check (1e-4 of the largest plain value of each output)
+    fails the plain version with each planted fault, at one block a
+    cluster (W 16) and at clusters of 2 (W 600)."""
+    u = _inputs(W, 300, "float32")[2]
+    want = ref.trust_score_ref(u)
+    assert trust_score.plan(W, 300, 4).cluster == (1 if W == 16 else 2)
+    for fault in trust_score.FAULTS:
+        bad = ref.trust_score_ref(u, fault=fault)
+        assert any(float((x - e).abs().max())
+                   > 1e-4 * max(1.0, float(e.abs().max()))
+                   for x, e in zip(bad, want)), fault
+    with pytest.raises(ValueError, match="fault"):
+        ref.trust_score_ref(u, fault="nope")
 
 
 def test_ctypes_signatures_match_the_c_entry_points():
