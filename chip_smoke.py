@@ -75,15 +75,48 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   kernel; a second same-seed run must emit the same tokens;
                   then one prefill and four decode steps under
                   torch.profiler
+  multi_task      one ``ChainNode`` on the card with two paper-CNN tasks:
+                  ``big`` W = 4096 (64 x 64) sync, 8 settlement shards
+                  through a ``ShardWorkerPool``, and ``small`` W = 16
+                  async with random participation; four ticks (``big`` on
+                  ticks 0 and 2, ``small`` on each), ``verify_chain(deep=
+                  True)``, ``finalize()``; K1 once a round, K2 once a sync
+                  round, K3 once an async round; tick walls, settle times,
+                  peak memory; a same-seed rerun seals the same blocks
+  multi_task_parity  the same two tasks at W = 16 each, no dropout, on the
+                  card and on the CPU: scores within 1e-4, and equal
+                  penalised workers, penalties, balances and payouts
+  events          ``ChainNode.run_events`` at W = 4096 under churn
+                  (stragglers, lost updates), sparse settlement: K3 once a
+                  round; every event's delta-commit block proves a late and
+                  an absent worker; deep chain check
+  read_path       a reader thread holds a ``LightClient`` on a live W =
+                  4096 node while it seals: header sync, batched proofs for
+                  all 4096 workers of the last settled round (proofs/s),
+                  that round's model blob streamed (MB/s); then a
+                  checkpoint of the params and the events task's 4096 x
+                  21840 f32 pending buffer saved with the ledger, restored
+                  on the card bit for bit, its cid verified
+  network         a card leader's seal listener feeds a follower replica
+                  (``ingest_peer_blocks``); light clients of both audit the
+                  same records; then ``repro_torch.examples.
+                  decentralized_network`` at its defaults (host only)
+  examples        ``quickstart``, ``async_federation``,
+                  ``multi_task_federation`` and ``poisoning_defense``
+                  (worker-level and ``--head``) on the card at their
+                  defaults, K1-K3 once a round; the attackers end with
+                  less stake than every honest worker; defended and
+                  undefended accuracies
 
 Then it prints the card's ``nvidia-smi`` line, one ``{"kernels": [...]}``
-line (each kernel's launches on its main path, its error against the plain
+line (each kernel's launches on its paths, its error against the plain
 version, its time, the plain version's time, its bound and the time of a
 library call where one computes the same function: ``torch.mv`` for K2,
 ``scaled_dot_product_attention`` for K5; none for K1, K3 and K4), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without the last line; so does a machine without CUDA.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -361,12 +394,12 @@ def phase_kernels(name):
     return table
 
 
-def _configs(clusters=4, per_cluster=4, async_mode=False):
+def _configs(clusters=4, per_cluster=4, async_mode=False, **fed_kw):
     from repro_torch.configs.base import FederationConfig, TrainConfig
     from repro_torch.configs.registry import get_config
     fed = FederationConfig(num_clusters=clusters,
                            workers_per_cluster=per_cluster,
-                           async_mode=async_mode)
+                           async_mode=async_mode, **fed_kw)
     return get_config("paper-net"), fed, TrainConfig()
 
 
@@ -1077,6 +1110,460 @@ def phase_zamba_serve(name):
     return counts
 
 
+# -- the rest of the SDFL-B system on the card -------------------------------
+
+# multi_task: ``big`` fires on ticks 0 and 2, ``small`` on every tick
+MT_TICKS = [("big", "small"), ("small",), ("big", "small"), ("small",)]
+MT_BIG = (64, 64, 32)          # clusters, workers a cluster, batch a worker
+MT_SMALL = (4, 4, 64)
+EV_SHAPE = (64, 64, 32)        # events phase: W = 4096
+EVENTS = 4                     # arrival events
+READ_TICKS = 3                 # read_path: W = 4096 ticks while reading
+PROOF_BATCH = 1024             # workers a proof batch in read_path
+# card vs CPU on the multi-task node: scores absolute (the tolerance of
+# the parity phase); every settlement decision must be equal
+MT_SCORE_TOL = 1e-4
+# thresholds that split the parity run's cohorts (its scores lie in
+# 0.50-0.75 and 0.63-0.85; the nearest is 1e-3 away)
+MT_PARITY_T = {"big": 0.65, "small": 0.73}
+
+
+def _without_dropout(round_fn):
+    """A task's round with no dropout: its masks come from each device's
+    own generator, so the card and the CPU would draw different ones."""
+    def call(params, opt, batch, rng, *rest):
+        return round_fn(params, opt, batch, None, *rest)
+    return call
+
+
+def run_multi_task(big, *, device=None, seed=0, dropout=True,
+                   thresholds=None):
+    """One ChainNode with two tasks: ``big`` (``big`` = (clusters, workers
+    a cluster, batch a worker), sync, 8 settlement shards through a shard
+    pool) and ``small`` (4 x 4, async, random participation), driven
+    through MT_TICKS, then flushed and deep-verified. ``thresholds``:
+    trust thresholds by task (default the federation's). Returns the node
+    (not finalized) and each tick's wall seconds."""
+    from repro_torch.core.node import ChainNode
+    from repro_torch.data.datasets import make_federated_mnist
+    cfg, big_fed, tc = _configs(*big[:2], task_id="big",
+                                settlement_shards=8)
+    small_fed = _configs(*MT_SMALL[:2], True, task_id="small")[1]
+    feds = {"big": big_fed, "small": small_fed}
+    for tid, t in (thresholds or {}).items():
+        feds[tid] = dataclasses.replace(feds[tid], trust_threshold=t)
+    shapes = {"big": big, "small": MT_SMALL}
+    data = {tid: make_federated_mnist(c * p, samples=c * p * b,
+                                      seed=seed + i)
+            for i, (tid, (c, p, b)) in enumerate(sorted(shapes.items()))}
+    rng = np.random.default_rng(seed + 7)
+    ticks = []
+    for fire in MT_TICKS:
+        mask = (rng.random(MT_SMALL[0] * MT_SMALL[1]) > 0.4).astype(np.int32)
+        mask[0] = 1
+        ticks.append(({tid: data[tid].round_batches(shapes[tid][2])
+                       for tid in fire}, {"small": mask}))
+    node = ChainNode(pipeline_depth=2, settler_pool_size=8, device=device)
+    for i, tid in enumerate(sorted(feds)):
+        task = node.create_task(tid, cfg, feds[tid], tc, seed=seed + i)
+        if not dropout:
+            task._round_fn = _without_dropout(task._round_fn)
+    check(node._shard_pool is not None, "multi_task: no ShardWorkerPool")
+    walls = []
+    for batches, part in ticks:
+        t = time.monotonic()
+        node.run_tick(batches, participation=part)
+        walls.append(time.monotonic() - t)
+    node.flush()
+    check(node.ledger.verify_chain(deep=True), "multi_task: deep verify")
+    return node, walls
+
+
+def _trust_launches(sync_rounds, async_rounds):
+    """K1 once a round, K2 once a sync round, K3 once an async round."""
+    return {"trust_score": sync_rounds + async_rounds,
+            "trust_agg": sync_rounds, "fused_async_agg": async_rounds,
+            "swa_decode": 0, "ssd_scan": 0}
+
+
+def _expect(phase, counts, want):
+    if counts != want:
+        raise AssertionError(f"{phase}: kernel launches {counts}, "
+                             f"expected {want}")
+
+
+def phase_multi_task():
+    """Two tasks on one card node (W = 4096 sync through the shard pool,
+    W = 16 async), four ticks at two cadences; a same-seed rerun must
+    seal the same blocks."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    node, walls = run_multi_task(MT_BIG)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    big, small = node.tasks["big"], node.tasks["small"]
+    check(len(big.history) == 2 and len(small.history) == 4)
+    _expect("multi_task", counts, _trust_launches(2, 4))
+    multi = [b.index for b in node.ledger.blocks if b.task_roots]
+    check(len(multi) == 2, f"multi_task: multi-task blocks {multi}")
+    for t in (big, small):
+        check(all(r.settled and np.isfinite(r.scores).all()
+                  for r in t.history))
+        check(all(torch.isfinite(v).all() for v in t.global_params.values()))
+    hashes = [b.hash for b in node.ledger.blocks]
+    rec = {"phase": "multi_task",
+           "tasks": {tid: {"W": t.W, "async": t.fed.async_mode,
+                           "settlement_shards": t.fed.settlement_shards,
+                           "rounds": len(t.history),
+                           "settle_s": [r.settle_time for r in t.history],
+                           "penalised": [int((r.penalties > 0).sum())
+                                         for r in t.history]}
+                     for tid, t in sorted(node.tasks.items())},
+           "ticks": [list(f) for f in MT_TICKS], "tick_wall_s": walls,
+           "shard_pool_threads": node._shard_pool.num_threads,
+           "blocks": len(hashes), "multi_task_blocks": multi,
+           "max_memory_allocated": peak, "launches": counts}
+    payouts = node.finalize()
+    check(set(payouts) == {"big", "small"})
+    del node, big, small
+    torch.cuda.empty_cache()
+    again, _ = run_multi_task(MT_BIG)
+    same = [b.hash for b in again.ledger.blocks[:len(hashes)]] == hashes
+    again.finalize()
+    del again
+    torch.cuda.empty_cache()
+    check(same, "multi_task: same-seed runs sealed different blocks")
+    rec["identical_rerun"] = True
+    emit(rec)
+    return counts
+
+
+def phase_multi_task_parity():
+    """The multi-task node at W = 16 + 16 on the card and on the CPU, no
+    dropout: scores within MT_SCORE_TOL, every decision equal."""
+    reset_counts()
+    card, _ = run_multi_task(MT_SMALL, device="cuda", dropout=False,
+                             thresholds=MT_PARITY_T)
+    counts = read_counts()
+    _expect("multi_task_parity", counts, _trust_launches(2, 4))
+    cpu, _ = run_multi_task(MT_SMALL, device="cpu", dropout=False,
+                            thresholds=MT_PARITY_T)
+    out = {"phase": "multi_task_parity", "score_tol": MT_SCORE_TOL,
+           "launches": counts}
+    for tid in sorted(card.tasks):
+        g, c = card.tasks[tid], cpu.tasks[tid]
+        gs = np.stack([r.scores for r in g.history])
+        cs = np.stack([r.scores for r in c.history])
+        diff = float(np.abs(gs - cs).max())
+        check(diff <= MT_SCORE_TOL, f"{tid}: scores off by {diff}")
+        T = g.fed.trust_threshold
+        check(np.array_equal(gs < T, cs < T), f"{tid}: penalised workers")
+        for a, b in zip(g.history, c.history):
+            check(np.array_equal(a.penalties, b.penalties),
+                  f"{tid}: penalties of round {a.round_index}")
+        check(np.array_equal(g.contract.stake, c.contract.stake)
+              and np.array_equal(g.contract.balance, c.contract.balance)
+              and g.contract.requester_balance
+              == c.contract.requester_balance, f"{tid}: balances")
+        out[tid] = {"max_score_diff": diff, "rounds": len(g.history),
+                    "penalised": int((gs < T).sum())}
+    pay_card, pay_cpu = card.finalize(), cpu.finalize()
+    check(pay_card == pay_cpu, f"payouts {pay_card} vs {pay_cpu}")
+    out["payouts_equal"] = True
+    emit(out)
+    return counts
+
+
+def phase_events():
+    """``ChainNode.run_events`` at W = 4096 (64 x 64) under churn: each
+    event seals its arrived cohort as a delta commit that still proves
+    the late and the absent workers. Returns the launch counts and the
+    task (its pending buffer goes into read_path's checkpoint)."""
+    from repro_torch.core import async_sim
+    from repro_torch.core.node import ChainNode
+    from repro_torch.data.datasets import make_federated_mnist
+    clusters, per_cluster, batch = EV_SHAPE
+    W = clusters * per_cluster
+    cfg, fed, tc = _configs(clusters, per_cluster, True, task_id="events",
+                            staleness_alpha=0.5, buffer_size=W // 2,
+                            sparse_settlement=True)
+    profiles = async_sim.heterogeneous_profiles(
+        W, straggler_frac=0.25, straggler_slowdown=6.0, failure_prob=0.05,
+        seed=0)
+    data = make_federated_mnist(W, samples=W * batch, seed=3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    node = ChainNode(pipeline_depth=2)
+    task = node.create_task("events", cfg, fed, tc, seed=0,
+                            profiles=profiles)
+    reset_counts()
+    t0 = time.monotonic()
+    recs = node.run_events({"events": lambda r: data.round_batches(batch)},
+                           events=EVENTS)["events"]
+    node.flush()
+    wall = time.monotonic() - t0
+    counts = read_counts()
+    check(len(recs) >= 2, f"events: {len(recs)} rounds")
+    _expect("events", counts, _trust_launches(0, len(recs)))
+    check(node.ledger.verify_chain(deep=True), "events: deep verify")
+    c = task.contract
+    proved = []
+    for rec in recs[1:]:
+        part = rec.participation
+        late = np.flatnonzero((part > 0) & (rec.staleness > 0))
+        absent = np.flatnonzero(part == 0)
+        check(len(late) and len(absent), "events: no late or absent worker")
+        for kind, w in (("late", int(late[0])), ("absent", int(absent[0]))):
+            p = c.settlement_proof(rec.round_index, w)
+            check(c.verify_settlement(p) and p["record"]["worker"] == w)
+            if kind == "late":
+                check(p["record"]["round"] == rec.round_index
+                      and p["record"]["staleness"] == int(rec.staleness[w]))
+            else:
+                check(p["record"]["round"] < rec.round_index)
+            proved.append([rec.round_index, kind, w])
+        check((rec.penalties[part == 0] == 0).all())
+    pending = task.async_state.pending
+    check(tuple(pending.shape) == (W, D_PAPER) and bool(
+        torch.isfinite(pending).all()))
+    emit({"phase": "events", "W": W, "events": EVENTS, "rounds": len(recs),
+          "cohorts": [int(r.participation.sum()) for r in recs],
+          "sim_time": [r.sim_time for r in recs],
+          "max_staleness": [int(r.staleness.max()) for r in recs],
+          "settle_s": [r.settle_time for r in recs], "wall_s": wall,
+          "round_wall_s": [r.wall_time for r in recs],
+          "proved": proved, "max_memory_allocated":
+          torch.cuda.max_memory_allocated(), "launches": counts})
+    node.finalize()
+    return counts, task
+
+
+def phase_read_path(events_task):
+    """A reader thread holds a LightClient on a live W = 4096 node while
+    the main thread keeps sealing: it syncs headers, fetches and verifies
+    proofs for all 4096 workers of the last settled round, and streams
+    that round's model blob. Then a checkpoint of ``big``'s params and the
+    events task's pending buffer is saved with the ledger, restored on the
+    card bit for bit, and its cid verified."""
+    import threading
+    from repro_torch.checkpoint import store
+    from repro_torch.core.node import ChainNode
+    from repro_torch.data.datasets import make_federated_mnist
+    from repro_torch.serve import LightClient, StaleProofError
+    c_, p_, b_ = MT_BIG
+    W = c_ * p_
+    cfg, fed, tc = _configs(c_, p_, task_id="big", settlement_shards=8)
+    data = make_federated_mnist(W, samples=W * b_, seed=0)
+    node = ChainNode(pipeline_depth=2, settler_pool_size=8)
+    task = node.create_task("big", cfg, fed, tc)
+    reset_counts()
+    node.run_tick({"big": data.round_batches(b_)})
+    node.flush()
+    server = node.read_server()
+    got, errors = {}, []
+    sealing = threading.Event()
+
+    def reader():
+        try:
+            lc = LightClient(server, client_id="auditor")
+            lc.sync()
+            got["height_at_start"] = lc.height
+            r = server.latest_settled_round("big")
+            t0 = time.monotonic()
+            n = 0
+            for lo in range(0, W, PROOF_BATCH):
+                batch = lc.fetch_proofs("big", list(range(lo, lo
+                                                          + PROOF_BATCH)),
+                                        round_index=r)
+                try:
+                    ok = lc.verify_batch(batch)
+                except StaleProofError:
+                    lc.sync()
+                    ok = lc.verify_batch(batch)
+                check(ok, f"read_path: proofs {lo}.. failed")
+                n += len(batch)
+            got["proofs_s"] = time.monotonic() - t0
+            got["proofs"] = n
+            blk = node.ledger.blocks[task.contract._round_blocks[r]]
+            cid = next(tx["cid"] for tx in blk.transactions
+                       if isinstance(tx, dict) and tx.get("type") == "model"
+                       and tx["round"] == r)
+            t0 = time.monotonic()
+            leaves = lc.fetch_checkpoint(cid)
+            got["stream_s"] = time.monotonic() - t0
+            got["stream_bytes"] = server.checkpoint_manifest(cid).size
+            check(len(leaves) == len(task.global_params))
+            got["round"] = r
+            while not sealing.wait(0.05):   # follow the head to the end
+                lc.sync()
+            lc.sync()
+            got["height_at_end"] = lc.height
+        except BaseException as e:          # re-raised on the main thread
+            errors.append(e)
+
+    th = threading.Thread(target=reader, daemon=True)
+    th.start()
+    for _ in range(READ_TICKS - 1):
+        node.run_tick({"big": data.round_batches(b_)})
+    node.flush()
+    sealing.set()
+    th.join()
+    if errors:
+        raise errors[0]
+    counts = read_counts()
+    _expect("read_path", counts, _trust_launches(READ_TICKS, 0))
+    check(got["proofs"] == W)
+    tree = {"big": task.global_params,
+            "events_pending": events_task.async_state.pending}
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in (*tree["big"].values(), tree["events_pending"]))
+    path = os.path.join(ROOT, "build", "chip_smoke", "checkpoint.msgpack")
+    t0 = time.monotonic()
+    cid = store.save(path, tree, step=len(task.history), ledger=node.ledger)
+    save_s = time.monotonic() - t0
+    check(node.ledger.head.transactions[0]["cid"] == cid)
+    t0 = time.monotonic()
+    back, step = store.restore(path, tree)
+    torch.cuda.synchronize()
+    restore_s = time.monotonic() - t0
+    check(step == len(task.history))
+    check(back["events_pending"].device.type == "cuda")
+    check(torch.equal(back["events_pending"], tree["events_pending"]),
+          "read_path: pending buffer restored with other bits")
+    check(all(torch.equal(back["big"][k], v)
+              for k, v in tree["big"].items()), "read_path: params")
+    check(store.verify(path, cid), "read_path: checkpoint cid")
+    file_bytes = os.path.getsize(path)
+    os.remove(path)
+    check(node.ledger.verify_chain(deep=True))
+    node.finalize()
+    emit({"phase": "read_path", "W": W, "ticks": READ_TICKS,
+          "proof_batch": PROOF_BATCH, "round": got["round"],
+          "headers_at_start": got["height_at_start"],
+          "headers_at_end": got["height_at_end"],
+          "proofs": got["proofs"], "proofs_s": got["proofs_s"],
+          "proofs_per_s": got["proofs"] / got["proofs_s"],
+          "stream_bytes": got["stream_bytes"], "stream_s": got["stream_s"],
+          "stream_mb_per_s": got["stream_bytes"] / 1e6 / got["stream_s"],
+          "checkpoint": {"tensor_bytes": nbytes, "file_bytes": file_bytes,
+                         "save_s": save_s, "restore_s": restore_s,
+                         "bitwise_equal": True, "cid_verified": True},
+          "server": {"proof_batches": server.proof_batches,
+                     "digests_shipped": server.digests_shipped,
+                     "chunks_streamed": server.chunks_streamed},
+          "launches": counts})
+    del back, tree
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_network():
+    """A card leader whose seal listener feeds a follower replica; light
+    clients of both audit the same records. Then the settlement network
+    example at its defaults (host only)."""
+    import contextlib
+    import io
+    from repro_torch.core.node import ChainNode
+    from repro_torch.data.datasets import make_federated_mnist
+    from repro_torch.examples import decentralized_network
+    from repro_torch.serve import ChainReadServer, LightClient
+    cfg, fed, tc = _configs(task_id="net")
+    leader = ChainNode(pipeline_depth=2)
+    follower = ChainNode(pipeline_depth=0)
+    adopted = []
+    leader.add_seal_listener(lambda blk, commit: adopted.append(
+        follower.ingest_peer_blocks([blk], {blk.index: commit})))
+    task = leader.create_task("net", cfg, fed, tc, seed=0)
+    data = make_federated_mnist(16, samples=16 * 64, seed=4)
+    reset_counts()
+    for _ in range(3):
+        leader.run_tick({"net": data.round_batches(64)})
+    leader.flush()
+    counts = read_counts()
+    _expect("network", counts, _trust_launches(3, 0))
+    check(sum(adopted) == len(leader.ledger.blocks) - 1)
+    check([b.hash for b in follower.ledger.blocks]
+          == [b.hash for b in leader.ledger.blocks], "network: replica")
+    check(follower.ledger.verify_chain(deep=True))
+    lc_leader = LightClient(leader.read_server())
+    lc_follower = LightClient(ChainReadServer(
+        ledger=follower.ledger, contracts={"net": task.contract}))
+    audits = 0
+    for lc in (lc_leader, lc_follower):
+        lc.sync()
+    for r in range(3):
+        for w in range(task.W):
+            check(lc_follower.audit("net", w, round_index=r)
+                  == lc_leader.audit("net", w, round_index=r))
+            audits += 1
+    leader.finalize()
+    follower.close()
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        decentralized_network.main()
+    lines = buf.getvalue().splitlines()
+    check(lines[-1] == "all scenarios converged.")
+    emit({"phase": "network", "replica_blocks": len(follower.ledger.blocks),
+          "audits_equal": audits, "launches": counts,
+          "harness_s": time.monotonic() - t0,
+          "harness_lines": [ln.strip() for ln in lines if ln.strip()]})
+    return counts
+
+
+def phase_examples():
+    """The port's examples on the card at their defaults; each one's K1-K3
+    launches once a round."""
+    import contextlib
+    import io
+    from repro_torch.examples import (async_federation,
+                                      multi_task_federation,
+                                      poisoning_defense, quickstart)
+    out = {"phase": "examples"}
+    total = {k: 0 for k in counters()}
+
+    def run(name, fn, launches):
+        reset_counts()
+        buf = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(buf):
+            res = fn()
+        counts = read_counts()
+        _expect(name, counts, launches(res))
+        for k, n in counts.items():
+            total[k] += n
+        out[name] = {"seconds": time.monotonic() - t0, "launches": counts,
+                     "last_lines": buf.getvalue().splitlines()[-2:]}
+        return res
+
+    q = run("quickstart", quickstart.main, lambda r: _trust_launches(30, 0))
+    check(q["verified"] and q["record"]["worker"] == 0)
+    a = run("async_federation", async_federation.main,
+            lambda r: _trust_launches(0, sum(map(len,
+                                                 r["records"].values()))))
+    check(a["speedup"] > 1.0)
+    m = run("multi_task_federation", multi_task_federation.main,
+            lambda r: _trust_launches(sum(r["rounds"].values()), 0))
+    check(m["verified"] and m["proof_ok"])
+    for head in (False, True):
+        name = "poisoning_defense" + ("_head" if head else "")
+        p = run(name, lambda: poisoning_defense.main(head),
+                lambda r: _trust_launches(80, 0))
+        stakes = p["defended"]["stakes"]
+        honest = [w for w in range(8) if w not in p["attackers"]]
+        check(max(stakes[w] for w in p["attackers"])
+              < min(stakes[w] for w in honest),
+              f"{name}: attacker stakes {stakes}")
+        check(all(stakes[w] < 10.0 for w in p["attackers"]))
+        out[name].update({"acc_defended": p["defended"]["acc"],
+                          "acc_undefended": p["undefended"]["acc"],
+                          "stakes": stakes,
+                          "attackers": sorted(p["attackers"])})
+    emit(out)
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's path needs one",
@@ -1107,6 +1594,14 @@ def main():
     ssd_row = phase_ssd_kernel(name)
     phase_zamba_parity()
     zamba_counts = phase_zamba_serve(name)
+    new_paths = [phase_multi_task(), phase_multi_task_parity()]
+    events_counts, events_task = phase_events()
+    new_paths += [events_counts, phase_read_path(events_task)]
+    del events_task
+    new_paths += [phase_network(), phase_examples()]
+    for counts in new_paths:
+        for k in ("trust_score", "trust_agg", "fused_async_agg"):
+            launches[k] += counts[k]
 
     summary = []
     for k in table:

@@ -12,7 +12,9 @@ by the peers' mean on-chain trust, and folds them into its own aggregate —
 the semi-decentralized propagation path that lets model quality flow between
 clusters even when the global synchronization is partial (async mode).
 
-Aggregates are flat dicts of tensors (the port's param layout).
+Aggregates are flat dicts of tensors (the port's param layout) or of
+numpy arrays (``repro_torch.net`` gossips host-side aggregates); ``fetch``
+and ``merge`` give back the kind they were given.
 """
 from __future__ import annotations
 
@@ -82,11 +84,11 @@ class ClusterExchange:
 
     def fetch(self, round_index: int, cluster: int, like):
         """Pull a peer cluster's aggregate by hash (content-verified) and
-        restore it into ``like``'s keys, shapes, dtypes and device."""
+        restore it into ``like``'s keys, shapes and dtypes — tensors on
+        ``like``'s device, or numpy arrays."""
         cid = self._round_cids[round_index][cluster]
         leaves = self.ipfs.get_leaves(cid)
-        return {k: torch.from_numpy(np.array(a).reshape(ll.shape)).to(
-                    device=ll.device, dtype=ll.dtype)
+        return {k: _restore(a, ll)
                 for a, (k, ll) in zip(leaves, flatten_tree(like))}
 
     def merge(self, round_index: int, own_cluster: int, own_aggregate,
@@ -102,10 +104,32 @@ class ClusterExchange:
         if w.sum() <= 0:
             return own_aggregate
         w = w / w.sum() * (1.0 - self_weight)
-        merged = {k: self_weight * x.float()
-                  for k, x in own_aggregate.items()}
+        merged = {k: self_weight * _f32(x) for k, x in own_aggregate.items()}
         for c, wc in zip(peers, w):
             peer = self.fetch(round_index, c, own_aggregate)
-            merged = {k: m + float(wc) * peer[k].float()
+            merged = {k: m + float(wc) * _f32(peer[k])
                       for k, m in merged.items()}
-        return {k: m.to(own_aggregate[k].dtype) for k, m in merged.items()}
+        return {k: _cast(m, own_aggregate[k]) for k, m in merged.items()}
+
+
+def _restore(a: np.ndarray, like):
+    """A fetched leaf in ``like``'s shape and dtype (and device)."""
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(np.array(a).reshape(like.shape)).to(
+            device=like.device, dtype=like.dtype)
+    like = np.asarray(like)
+    return np.asarray(a).reshape(like.shape).astype(like.dtype)
+
+
+def _f32(x):
+    """f32 view of a leaf; numpy leaves stay numpy (an f32 array times a
+    Python float stays f32, as in the reference)."""
+    if isinstance(x, torch.Tensor):
+        return x.float()
+    return np.asarray(x).astype(np.float32)
+
+
+def _cast(m, like):
+    if isinstance(like, torch.Tensor):
+        return m.to(like.dtype)
+    return m.astype(np.asarray(like).dtype)

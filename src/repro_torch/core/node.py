@@ -74,9 +74,9 @@ dropout masks from a ``torch.Generator`` seeded per task, batches go to the
 card through pinned ``non_blocking`` copies, and the round's scores,
 weights and losses come back through pinned ``non_blocking`` copies behind
 one recorded CUDA event, which ``_finish_round`` waits on — the only
-training-path sync point. The chain side is the reference's, copied.
-The ``repro.serve`` / ``repro.net`` seams (``read_server``,
-``add_seal_listener``, ``ingest_peer_blocks``) are not ported yet.
+training-path sync point. The chain side is the reference's, copied,
+with its ``repro_torch.serve`` / ``repro_torch.net`` seams
+(``read_server``, ``add_seal_listener``, ``ingest_peer_blocks``).
 """
 from __future__ import annotations
 
@@ -973,6 +973,17 @@ class ChainNode:
     module docstring for the tick/block layout, fairness, and failure
     isolation rules.
 
+    Read path (``read_server()``): proof serving is lock-free by design,
+    so readers never block — or wait on — the settler write path. The
+    invariants that make this safe: ``Ledger._seal`` registers a block's
+    commit *before* publishing the block (so any block a reader can see
+    has resolvable proofs), sealed commits/blocks are immutable, and the
+    contract's round bookkeeping (``note_block``) is written only after
+    the seal — a reader that cannot resolve a round yet simply treats it
+    as not-yet-settled and retries after its next head sync. Readers
+    resolve tasks by key lookup on ``tasks`` (never iteration), so
+    concurrent ``create_task`` registration is safe too.
+
     ``device``: where every task's rounds run — ``cuda`` unless the
     caller passes another (``"cpu"`` for the tests); without a CUDA device
     and without an explicit request, construction raises."""
@@ -1011,6 +1022,9 @@ class ChainNode:
         # hence every block hash) is identical either way, the pool only
         # changes who hashes it
         self._shard_pool: Optional[ShardWorkerPool] = None
+        # seal-broadcast hooks (repro_torch.net): called with each freshly
+        # sealed block + its commit, on the settler thread
+        self._seal_listeners: List[Callable] = []
         self._settler = _SettlerPool(self._settle_tick, pipeline_depth)
         self._closed = False
 
@@ -1070,6 +1084,48 @@ class ChainNode:
         """Sticky per-task settlement failures: task_id → (round, error)."""
         return {tid: err for tid in sorted(self.tasks)
                 if (err := self._settler.task_error(tid)) is not None}
+
+    def add_seal_listener(self, fn: Callable) -> None:
+        """Register ``fn(block, commit)`` to run after every block this
+        node seals — the broadcast hook a ``repro_torch.net`` gossip layer
+        attaches to flood freshly sealed blocks to peers. Listeners run
+        on the settler thread, after the block is published on the
+        ledger; a listener exception is node-fatal (like any settler
+        fault), so broadcast hooks should catch their own transport
+        errors."""
+        self._seal_listeners.append(fn)
+
+    def ingest_peer_blocks(self, blocks, commits=None) -> int:
+        """Adopt externally sealed blocks (gossiped by a peer node) onto
+        this node's chain head, oldest-first, after draining in-flight
+        local ticks so the adoption races no settler append. ``commits``
+        maps block index → ``MultiTaskCommit`` for blocks that commit
+        records (shipped alongside the block over the wire). Each block
+        is verified on receipt by ``Ledger.adopt_block`` (linkage, hash
+        recomputation, commit super-root). Returns how many blocks were
+        adopted. Per-contract account state is *not* replayed here —
+        that is ``repro_torch.net.SettlementNode``'s job; this hook is for
+        proof-serving replicas that track a remote chain."""
+        if self._closed:
+            raise RuntimeError("chain node already closed")
+        if self.ledger is None:
+            raise RuntimeError("blockchain disabled on this node")
+        self.drain()
+        commits = commits or {}
+        n = 0
+        for blk in blocks:
+            self.ledger.adopt_block(blk, commits.get(blk.index))
+            n += 1
+        return n
+
+    def read_server(self, **kwargs) -> "object":
+        """A ``repro_torch.serve.ChainReadServer`` over this live node:
+        head-sync handshakes, batched settlement-proof fetch, and
+        checkpoint streaming for light clients, served lock-free off the
+        published chain state (see the class docstring's read-path
+        invariants) while the ``_SettlerPool`` keeps sealing."""
+        from repro_torch.serve import ChainReadServer
+        return ChainReadServer(self, **kwargs)
 
     # -- one node tick ---------------------------------------------------------
 
@@ -1242,6 +1298,8 @@ class ChainNode:
             blk, pens, errors = settle_tasks_block(
                 self.ledger, work, timestamp=float(tp.tick + 1),
                 pool=self._shard_pool)
+            for listener in self._seal_listeners:
+                listener(blk, self.ledger._commits.get(blk.index))
             for (task, p, t0), w in zip(live, work):
                 if w.task_id in errors:
                     outcomes.append((w.task_id, w.round_index, None,
