@@ -106,9 +106,47 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   (worker-level and ``--head``) on the card at their
                   defaults, K1-K3 once a round; the attackers end with
                   less stake than every honest worker; defended and
-                  undefended accuracies
+                  undefended accuracies; ``federated_llm`` (smollm-135m's
+                  smoke config, 5 rounds, per-leaf: no kernel launches)
+  f4              fault F4: zamba2 at full width cut to 2 Mamba2 layers
+                  and the shared block, ``api.forward`` with params that
+                  require grad raises through K4 (no kernel has a
+                  backward); under ``torch.no_grad()`` it launches K4
+                  twice; K1, K2, K3 and K5 refuse an input that requires
+                  grad, launching nothing
+  llm_parity      smollm-135m's smoke config (2 layers, d 288, V 512,
+                  bf16), W = 4 (2 x 2), AdamW, 3 rounds of
+                  ``SDFLBProtocol`` on the card and on the CPU, sync and
+                  async, per-leaf and flat-pack: scores within 1e-3,
+                  losses 2e-3, params two bf16 steps plus 8 lr, the same
+                  penalties and payouts (T = 0.47 splits the workers; the
+                  margins are checked); K1 with K2 or K3 once a flat-pack
+                  round
+  llm_round       smollm-135m at full size (30 layers, d 576, V 49,152,
+                  bf16, D = 134,515,008) through ``launch/train.py
+                  --full``: W = 8 in 2 clusters, batch 32, seq 128, AdamW,
+                  remat; 3 sync per-leaf rounds with the chain (round
+                  walls, tokens/s, settle times, each IPFS put of the 269
+                  MB model, peak memory) and 3 async ones without it (the
+                  puts set a chained round's pace); the held-out loss
+                  must fall in each run; one sync and one async flat-pack
+                  round from the same state as a per-leaf one, both timed
+                  (scores within 1e-3, the same decisions, K1 with K2 or
+                  K3 once; K1-K3 against their plain versions at (8,
+                  134,515,008) bf16 and K1 against the per-leaf
+                  statistics within 1e-3 of the sums of |terms|, with
+                  times and bounds); a same-seed one-round rerun must seal
+                  the same genesis and round blocks; one worker's backward
+                  under ``torch.use_deterministic_algorithms(warn_only=
+                  True)`` may flag no op; one worker's step profiled
+  dense_serve     smollm-135m and yi-6b: card against CPU at full width
+                  cut to 2 layers (f32 and bf16; batch 2, prompt 160, 4
+                  tokens), then at full size (bf16, batch 4, prompt 1024,
+                  32 tokens) twice with the same tokens; no kernel (both
+                  have window 0)
 
-Then it prints the card's ``nvidia-smi`` line, one ``{"kernels": [...]}``
+Then it prints the run's total wall, the card's ``nvidia-smi`` line, one
+``{"kernels": [...]}``
 line (each kernel's launches on its paths, its error against the plain
 version, its time, the plain version's time, its bound and the time of a
 library call where one computes the same function: ``torch.mv`` for K2,
@@ -1517,7 +1555,7 @@ def phase_examples():
     launches once a round."""
     import contextlib
     import io
-    from repro_torch.examples import (async_federation,
+    from repro_torch.examples import (async_federation, federated_llm,
                                       multi_task_federation,
                                       poisoning_defense, quickstart)
     out = {"phase": "examples"}
@@ -1560,8 +1598,638 @@ def phase_examples():
                           "acc_undefended": p["undefended"]["acc"],
                           "stakes": stakes,
                           "attackers": sorted(p["attackers"])})
+    f = run("federated_llm", federated_llm.main,
+            lambda r: _trust_launches(0, 0))
+    check(f["verified"] and f["blocks"] == 7
+          and np.isfinite(f["losses"]).all())
+    out["federated_llm"]["mean_loss"] = f["losses"]
     emit(out)
     return total
+
+
+# -- the LLM slice: fault F4, federated smollm-135m, dense serves ------------
+
+LLM = "smollm-135m"
+# ``launch/train.py --arch smollm-135m --full``: W = 8 in 2 clusters, batch
+# 32, seq 128 (its defaults), AdamW lr 3e-4, clip 1.0, remat; 3 rounds a
+# run. Each round with the chain puts the 269 MB model to IPFS (as 538 MB
+# of f32, zlib on one host core: 105-128 s a put beside an NVIDIA H100
+# 80GB HBM3 at 700.00 W, PERF.md section 5), and a round waits for the
+# last one's block, so only the sync run and a one-round same-seed rerun
+# settle on the chain; the async run trains without it.
+LLM_TRAIN = ["--arch", LLM, "--full", "--workers", "8", "--clusters", "2",
+             "--batch", "32", "--seq", "128", "--rounds", "3"]
+LLM_ASYNC = ["--async", "--no-blockchain"]
+LLM_RERUN = ["--rounds", "1"]
+LLM_HELDOUT_SEED = 1000          # a batch no round trains on
+# flat-pack (K1 over the (8, 134,515,008) bf16 pack) against the per-leaf
+# statistics: f32 sums over 1.3e8 terms in two orders. K1's longest chain
+# of f32 additions at that shape is ~8.1e3 (a thread walks ~7,962 strips of
+# the 132 clusters, then its pieces, the warp and the clusters' partials);
+# the per-leaf path's reductions are not longer. With the standard bound
+# gamma_n = n * 2^-24 for each, |difference| <= 2 * 8.1e3 * 2^-24 *
+# sum|terms| < 1e-3 * sum|terms| (sum|u_w c| for dot, sq_u itself for
+# sq_u, sq_c itself for sq_c).
+LLM_STATS_RTOL = 1e-3
+# the scores take the statistics through the cosine and norm terms
+# (weights 0.5 and 0.3): absolute on scores in [0, 1], flat-pack against
+# per-leaf on the card, and card against CPU at smoke size (bf16 rounds at
+# other places there; tests/test_torch_train.py measured 1.6e-4 against
+# the reference)
+LLM_SCORE_TOL = 1e-3
+# card vs CPU at smoke size (2 x 2 workers, 3 rounds): losses absolute;
+# params within two bf16 steps plus the 2.6 lr a round a worker's AdamW
+# step (~lr sign(g)) can take the other way where a gradient is near 0
+LLM_LOSS_TOL = 2e-3
+LLM_PARITY_T, LLM_PARITY_TOPK = 0.47, 2      # splits the smoke run's workers
+LLM_MASKS = [[1, 0, 1, 1], [0, 1, 1, 1], [1, 1, 0, 1]]
+LLM_FLAT_MASK = [1, 1, 0, 1, 1, 0, 1, 1]     # the async flat-pack round
+DENSE = ("smollm-135m", "yi-6b")
+DENSE_SERVE = dict(batch=4, prompt_len=1024, gen=32)
+DENSE_PARITY = dict(batch=2, prompt_len=160, gen=4, seed=3)
+
+
+def phase_f4():
+    """Fault F4: a kernel wrapper given a CUDA input that requires grad,
+    under grad mode, raises (no kernel defines a backward). zamba2 at full
+    width cut to 2 Mamba2 layers and the shared block: ``api.forward``
+    with params that require grad raises through K4; the same call under
+    ``torch.no_grad()`` launches K4 once a Mamba2 layer. Then each trust
+    kernel and K5 refuse a small input that requires grad."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import fused_round, swa_decode, trust_agg, \
+        trust_score
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    cfg = get_config(ZAMBA).replace(num_layers=2, shared_attn_every=2)
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    for p in params.values():
+        p.requires_grad_(True)
+    tokens = torch.zeros((1, cfg.ssm.chunk_size), dtype=torch.long,
+                         device=dev)
+    reset_counts()
+    try:
+        api.forward(params, cfg, {"tokens": tokens})
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and raised.startswith("ssd_scan:"),
+          f"f4: zamba2 forward under grad gave {raised!r}")
+    check(read_counts()["ssd_scan"] == 0)
+    with torch.no_grad():
+        logits, _ = api.forward(params, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["ssd_scan"] == 2 and torch.isfinite(logits).all(), counts)
+    del params, logits
+    g = torch.Generator(dev).manual_seed(1)
+    u = torch.randn((8, 4096), generator=g, device=dev)
+    w = torch.rand((8,), generator=g, device=dev)
+    q = torch.randn((2, 8, 64), generator=g, device=dev)
+    kv = torch.randn((2, 300, 2, 64), generator=g, device=dev)
+    refused = {}
+    for name, fn, args in (
+            ("trust_score", trust_score.trust_score_stats, lambda x: (x,)),
+            ("trust_agg", trust_agg.trust_agg, lambda x: (x, w)),
+            ("fused_async_agg", fused_round.fused_async_agg,
+             lambda x: (x, u, w, w)),
+            ("swa_decode", swa_decode.swa_decode,
+             lambda x: (q, kv, x, 299, 128))):
+        x = (kv if name == "swa_decode" else u).clone().requires_grad_(True)
+        before = fn.launches
+        try:
+            fn(*args(x))
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "no backward" in str(e)
+        check(refused[name] and fn.launches == before, f"f4: {name}")
+    torch.cuda.empty_cache()
+    emit({"phase": "f4", "arch": ZAMBA, "layers": cfg.num_layers,
+          "grad_error": raised, "no_grad_k4_launches": counts["ssd_scan"],
+          "refused": refused})
+
+
+def _settle_decisions(fed, rounds_scores, W):
+    """Penalties of each round, stakes, balances and payouts when a fresh
+    contract settles these scores."""
+    from repro_torch.chain.contract import TrustContract
+    from repro_torch.chain.ledger import Ledger
+    c = TrustContract(Ledger(), requester_deposit=fed.requester_deposit,
+                      worker_stake=fed.worker_stake,
+                      penalty_pct=fed.penalty_pct,
+                      trust_threshold=fed.trust_threshold,
+                      top_k=fed.top_k_rewarded)
+    c.join_batch(W)
+    pens = [c.settle_round_batch(r, np.asarray(s, np.float64),
+                                 timestamp=float(r + 1)).tolist()
+            for r, s in enumerate(rounds_scores)]
+    return {"penalties": pens, "stake": c.stake.tolist(),
+            "balance": c.balance.tolist(),
+            "payouts": c.finalize(timestamp=float(len(rounds_scores) + 1))}
+
+
+def phase_llm_parity():
+    """smollm-135m's smoke config (2 layers, d 288, V 512, bf16), W = 4
+    (2 x 2), AdamW, 3 rounds through ``SDFLBProtocol`` on the card and on
+    the CPU from the same seeded weights: sync and async, per-leaf and
+    flat-pack. Scores within LLM_SCORE_TOL, losses within LLM_LOSS_TOL,
+    params within two bf16 steps plus 8 lr, and the same decisions
+    (penalties, stakes, balances, payouts; T splits the workers, and the
+    margins are checked); K1 with K2 or K3 once a flat-pack round."""
+    from repro_torch.configs.base import FederationConfig, TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.protocol import SDFLBProtocol
+    from repro_torch.data.datasets import synthetic_tokens
+    cfg = get_smoke_config(LLM)
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, grad_clip=1.0, remat=False)
+    out = {"phase": "llm_parity", "arch": LLM, "W": 4, "rounds": 3,
+           "score_tol": LLM_SCORE_TOL, "loss_tol": LLM_LOSS_TOL,
+           "T": LLM_PARITY_T, "top_k": LLM_PARITY_TOPK}
+    total = {k: 0 for k in counters()}
+    for fused in (False, True):
+        for async_mode in (False, True):
+            fed = FederationConfig(
+                num_clusters=2, workers_per_cluster=2,
+                trust_threshold=LLM_PARITY_T,
+                top_k_rewarded=LLM_PARITY_TOPK, async_mode=async_mode,
+                fused_trust_path="on" if fused else "off")
+            res = {}
+            for dev in ("cuda", "cpu"):
+                reset_counts()
+                proto = SDFLBProtocol(cfg, fed, tc, seed=0, device=dev)
+                recs = [proto.run_round(
+                    synthetic_tokens(4, 2, 128, cfg.vocab_size, seed=r),
+                    participation=(np.array(LLM_MASKS[r], np.int32)
+                                   if async_mode else None))
+                    for r in range(3)]
+                proto.flush()
+                res[dev] = (proto, recs, read_counts(),
+                            {k: v.float().cpu()
+                             for k, v in proto.global_params.items()},
+                            proto.finalize())
+            (_, g, counts, gp, gpay), (_, c, _, cp, cpay) = \
+                res["cuda"], res["cpu"]
+            n = 3 if fused else 0
+            _expect("llm_parity", counts, _trust_launches(
+                0 if async_mode else n, n if async_mode else 0))
+            for k, v in counts.items():
+                total[k] += v
+            gs = np.stack([r.scores for r in g])
+            cs = np.stack([r.scores for r in c])
+            diff = {"scores": float(np.abs(gs - cs).max()),
+                    "losses": float(max(np.abs(a.losses - b.losses).max()
+                                        for a, b in zip(g, c))),
+                    "params_over_bf16_steps": 0.0}
+            for k in cp:
+                d = (gp[k] - cp[k]).abs() - 2.0 ** -7 * cp[k].abs()
+                diff["params_over_bf16_steps"] = max(
+                    diff["params_over_bf16_steps"], float(d.max()))
+            mean = np.sort(cs.mean(axis=0))[::-1]
+            margins = {"T": float(np.abs(cs - LLM_PARITY_T).min()),
+                       "top_k": float(mean[LLM_PARITY_TOPK - 1]
+                                      - mean[LLM_PARITY_TOPK])}
+            case = "_".join(("flat" if fused else "per_leaf",
+                             "async" if async_mode else "sync"))
+            check(diff["scores"] <= LLM_SCORE_TOL
+                  and diff["losses"] <= LLM_LOSS_TOL
+                  and diff["params_over_bf16_steps"] <= 8 * tc.lr,
+                  f"llm_parity {case}: {diff}")
+            check(min(margins.values()) > LLM_SCORE_TOL,
+                  f"llm_parity {case}: margins {margins}")
+            check((cs < LLM_PARITY_T).any() and (cs > LLM_PARITY_T).any())
+            check(all(np.array_equal(a.penalties, b.penalties)
+                      for a, b in zip(g, c)), f"{case}: penalties")
+            check(gpay == cpay, f"{case}: payouts {gpay} vs {cpay}")
+            out[case] = {**diff, "margins": margins,
+                         "penalised": int((cs < LLM_PARITY_T).sum()),
+                         "launches": counts}
+            del res, g, c, gp, cp
+            torch.cuda.empty_cache()
+    emit(out)
+    return total
+
+
+def _heldout_loss(cfg, params, batch, dev):
+    """The mean loss of one model (``params``) on a (B, S) batch."""
+    from repro_torch.models import api
+    with torch.no_grad():
+        b = {k: torch.from_numpy(v).to(dev)[None] for k, v in batch.items()}
+        return float(api.loss_fn(cfg)(api.stack(params), b)[0][0])
+
+
+def _llm_run(extra, heldout):
+    """One ``launch.train`` run (LLM_TRAIN + ``extra``): its records, the
+    wall of each IPFS put of the global model (timed around
+    ``IPFSStore.put_tree`` on the settler thread), the peak memory, and
+    its held-out loss before (the same seeded init) and after, which must
+    fall. Returns the protocol, the record and the block hashes."""
+    import contextlib
+    import io
+    from repro_torch.chain.ipfs import IPFSStore
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    cfg = get_config(LLM)
+    init = api.init(cfg, torch.Generator().manual_seed(0), dev)
+    before = _heldout_loss(cfg, init, heldout, dev)
+    del init
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    puts, put_tree = [], IPFSStore.put_tree
+
+    def timed_put(self, *a, **kw):
+        t = time.monotonic()
+        out = put_tree(self, *a, **kw)
+        puts.append(time.monotonic() - t)
+        return out
+    IPFSStore.put_tree = timed_put
+    buf = io.StringIO()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = train.main(LLM_TRAIN + extra)
+    finally:
+        IPFSStore.put_tree = put_tree
+    wall = time.monotonic() - t0
+    proto = res["proto"]
+    peak = torch.cuda.max_memory_allocated()
+    after = _heldout_loss(cfg, proto.global_params, heldout, dev)
+    recs = proto.history
+    chain = proto.ledger is not None
+    check(proto.node.device.type == "cuda" and len(recs) >= 1)
+    check(all(r.settled and np.isfinite(r.scores).all()
+              and np.isfinite(r.losses).all() for r in recs))
+    check(not chain or (proto.ledger.verify_chain(deep=True)
+                        and len(puts) == len(recs)))
+    check(all(torch.isfinite(v).all() for v in proto.global_params.values()))
+    tokens = proto.W * 32 * 128
+    rec = {"chain": chain, "run_s": wall,
+           "round_wall_s": res["round_wall_s"],
+           "tokens_per_s": [tokens / w for w in res["round_wall_s"]],
+           "settle_s": [r.settle_time for r in recs],
+           "ipfs_put_s": puts,
+           "max_memory_allocated": peak,
+           "mean_loss": [float(r.losses.mean()) for r in recs],
+           "mean_score": [float(r.scores.mean()) for r in recs],
+           "heldout_loss": [before, after],
+           "eval_lines": [json.loads(ln) for ln in buf.getvalue().splitlines()
+                          if ln.startswith("{")]}
+    check(after < before, f"llm_round: held-out loss {before} -> {after}")
+    return proto, rec, [b.hash for b in proto.ledger.blocks] if chain \
+        else []
+
+
+def _capture_flat(fn, *args):
+    """Run the round ``fn(*args)`` and keep the (W, D) pack that its
+    flat-pack path hands to K1 (``trust.update_stats_flat``)."""
+    from repro_torch.core import trust
+    seen = []
+    orig = trust.update_stats_flat
+
+    def spy(upd, *rest):
+        seen.append(upd)
+        return orig(upd, *rest)
+    trust.update_stats_flat = spy
+    try:
+        out = fn(*args)
+    finally:
+        trust.update_stats_flat = orig
+    check(len(seen) == 1)
+    return out, seen[0]
+
+
+def _stats_check(upd, spec, losses):
+    """K1 over the pack against its plain version (RTOL, the kernels
+    phase's) and against the per-leaf statistics of the same updates
+    (LLM_STATS_RTOL of the sums of |terms|)."""
+    from repro_torch.core import trust
+    from repro_torch.kernels import pack, trust_score
+    flat = trust.update_stats_flat(upd, losses, losses)
+    plain = trust_score.trust_score_ref(upd)
+    leaf = trust.update_stats(pack.unpack_stack(upd, spec), losses, losses)
+    c = plain[2].new_zeros(upd.shape[1])
+    for w in range(upd.shape[0]):
+        c += upd[w].float()
+    c /= upd.shape[0]
+    abs_dot = torch.stack([(upd[w].float() * c).abs().sum()
+                           for w in range(upd.shape[0])])
+    out = {"k1_vs_plain": max(float((a - b).abs().max()) / (RTOL * max(
+        1.0, float(b.abs().max()))) for a, b in zip(flat[:3], plain))}
+    scale = {"dot": abs_dot, "sq_u": leaf.sq_u, "sq_c": leaf.sq_c}
+    for name in scale:
+        a, b = getattr(flat, name), getattr(leaf, name)
+        out[f"{name}_rel_to_abs_sum"] = float(
+            ((a - b).abs() / scale[name]).max())
+    check(out["k1_vs_plain"] <= 1, f"K1 vs plain at the LLM shape: {out}")
+    check(max(v for k, v in out.items() if k.endswith("abs_sum"))
+          <= LLM_STATS_RTOL, f"K1 vs per-leaf statistics: {out}")
+    return out
+
+
+def _kernel_row(name, fn, plain, args, nbytes, flops, bw, f32_peak):
+    """One kernel at the LLM round's shape: error against its plain
+    version, times and bound."""
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(float((g - e).abs().max()) for g, e in zip(got, want))
+    scale = max(max(1.0, float(e.abs().max())) for e in want)
+    check(err <= RTOL * scale, f"{name} at the LLM shape: {err}")
+    del got, want
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / f32_peak * 1e3
+    return {"max_abs_err": err, "ms": time_ms(lambda: fn(*args)),
+            "plain_ms": time_ms(lambda: plain(*args)),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _worker_step(cfg, params, batch):
+    """One worker's loss and gradient at full size, as the round runs it
+    (remat, ``tc.kv_chunk``)."""
+    from repro_torch.models import api
+    lm = api.lm_loss_fn(cfg, remat=True, kv_chunk=512)
+
+    def step():
+        p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss, _ = lm(p, batch)
+        torch.autograd.grad(loss, list(p.values()))
+        torch.cuda.synchronize()
+    return step
+
+
+def _deterministic_probe(step):
+    """``step`` under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: the ops of the LLM backward that PyTorch knows to be
+    nondeterministic on CUDA warn. cuBLAS's note on its workspace (a
+    concern across streams; the round runs on one) is kept apart."""
+    import warnings
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    msgs = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                   if "determinis" in str(w.message)})
+    return ([m for m in msgs if "CuBLAS" not in m],
+            [m for m in msgs if "CuBLAS" in m])
+
+
+def _step_profile(step):
+    """A warm ``step`` under torch.profiler: where its device time goes."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.monotonic()
+    step()
+    wall = time.monotonic() - t0
+    prof.stop()
+    return device_profile(prof, wall, ours=("gemm", "nvjet", "xmma"),
+                          label="gemm_s")
+
+
+def phase_llm_round(name):
+    """smollm-135m at full size through ``launch/train.py --full``: 3 sync
+    rounds with the chain and 3 async rounds without it, per-leaf (no
+    trust kernel on that path): each round's wall, tokens/s, settle time,
+    the IPFS puts of the global model, peak memory and the held-out loss;
+    one sync and one async flat-pack round from the same state as a
+    per-leaf one, each timed against the per-leaf round (the same scores
+    within LLM_SCORE_TOL and decisions; K1 with K2 or K3 once each,
+    checked against their plain versions and K1 against the per-leaf
+    statistics at W = 8, D = 134,515,008); a same-seed one-round rerun
+    seals the first run's first blocks; the deterministic-algorithms probe
+    of the backward and one worker's step profiled."""
+    import dataclasses as dc
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import async_agg, fl_step
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.kernels import fused_round, pack, trust_agg, \
+        trust_score
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    cfg = get_config(LLM)
+    bw, f32_peak = peaks(name)
+    heldout = {k: v[0] for k, v in synthetic_tokens(
+        8, 32, 128, cfg.vocab_size, seed=LLM_HELDOUT_SEED).items()}
+    out = {"phase": "llm_round", "arch": LLM, "args": LLM_TRAIN,
+           "async_args": LLM_ASYNC, "rerun_args": LLM_RERUN,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype}
+    reset_counts()
+    proto, out["sync"], hashes = _llm_run([], heldout)
+    out["sync"]["launches"] = read_counts()
+    _expect("llm_round sync", out["sync"]["launches"], _trust_launches(0, 0))
+    D = api.param_count(proto.global_params)
+    out.update(W=proto.W, D=D, ipfs_model_bytes=sum(
+        v.numel() * v.element_size() for v in proto.global_params.values()))
+
+    # the flat-pack sync round from the state the per-leaf run reached
+    task, fed = proto.task, proto.fed
+    tc = task.tc
+    batch = {k: torch.from_numpy(v).to(dev)[:, None] for k, v in
+             synthetic_tokens(8, 32, 128, cfg.vocab_size, seed=3).items()}
+    gp, opt = task.global_params, task.opt_state
+    leaf_fn = fl_step.make_fl_round(cfg, dc.replace(fed,
+                                                    fused_trust_path="off"),
+                                    tc, device=dev)
+    flat_fn = fl_step.make_fl_round(cfg, dc.replace(fed,
+                                                    fused_trust_path="on"),
+                                    tc, device=dev)
+    spec = pack.pack_spec(gp)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.monotonic()
+    leaf = leaf_fn(gp, opt, batch)
+    leaf_scores, leaf_w = leaf.scores.cpu().numpy(), leaf.weights.cpu()
+    leaf_s = time.monotonic() - t0
+    del leaf
+    t0 = time.monotonic()
+    flat, upd = _capture_flat(flat_fn, gp, opt, batch)
+    torch.cuda.synchronize()
+    flat_s = time.monotonic() - t0
+    flat_counts = read_counts()
+    _expect("llm_round flat sync", flat_counts, _trust_launches(1, 0))
+    flat_scores = flat.scores.cpu().numpy()
+    sync_flat = {
+        "leaf_round_s": leaf_s, "flat_round_s": flat_s,
+        "round_max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "score_diff": float(np.abs(flat_scores - leaf_scores).max()),
+        "weight_diff": float((flat.weights.cpu() - leaf_w).abs().max()),
+        "decisions_equal": _settle_decisions(fed, [flat_scores], 8)
+        == _settle_decisions(fed, [leaf_scores], 8),
+        "stats": _stats_check(upd, spec, flat.losses)}
+    check(sync_flat["score_diff"] <= LLM_SCORE_TOL
+          and sync_flat["weight_diff"] <= LLM_SCORE_TOL
+          and sync_flat["decisions_equal"], f"flat sync: {sync_flat}")
+    K1 = trust_score.hbm_bytes(8, D, 2)["minimum"]
+    w = flat.weights
+    kernels = {"trust_score": _kernel_row(
+        "trust_score", trust_score.trust_score_stats,
+        trust_score.trust_score_ref, (upd,), K1, 5 * 8 * D + 2 * D, bw,
+        f32_peak)}
+    kernels["trust_agg"] = _kernel_row(
+        "trust_agg", trust_agg.trust_agg, trust_agg.trust_agg_ref,
+        (upd, w), trust_agg.hbm_bytes(8, D, 2)["minimum"], 2 * 8 * D, bw,
+        f32_peak)
+    del flat, upd, gp, opt, task
+    proto = None
+    torch.cuda.empty_cache()
+
+    # async: per-leaf run, then a flat-pack round from its state
+    reset_counts()
+    proto, out["async"], _ = _llm_run(LLM_ASYNC, heldout)
+    out["async"]["launches"] = read_counts()
+    _expect("llm_round async", out["async"]["launches"],
+            _trust_launches(0, 0))
+    task, fed = proto.task, proto.fed
+    gp, opt, st = task.global_params, task.opt_state, task.async_state
+    part = torch.tensor(LLM_FLAT_MASK, dtype=torch.int32, device=dev)
+    leaf_fn = fl_step.make_fl_round(cfg, dc.replace(fed,
+                                                    fused_trust_path="off"),
+                                    tc, device=dev)
+    flat_fn = fl_step.make_fl_round(cfg, dc.replace(fed,
+                                                    fused_trust_path="on"),
+                                    tc, device=dev)
+    flat_st = async_agg.AsyncState(st.staleness, pack.pack_stack(
+        st.pending, spec, torch.float32))
+    reset_counts()
+    t0 = time.monotonic()
+    leaf, leaf_new = leaf_fn(gp, opt, batch, None, part, st)
+    leaf_scores = leaf.scores.cpu().numpy()
+    leaf_s = time.monotonic() - t0
+    leaf_pending = pack.pack_stack(leaf_new.pending, spec, torch.float32)
+    del leaf, leaf_new, st
+    task.async_state = None
+    t0 = time.monotonic()
+    (flat, flat_new), upd = _capture_flat(flat_fn, gp, opt, batch, None,
+                                          part, flat_st)
+    torch.cuda.synchronize()
+    flat_s = time.monotonic() - t0
+    counts = read_counts()
+    _expect("llm_round flat async", counts, _trust_launches(0, 1))
+    for k in counts:
+        flat_counts[k] += counts[k]
+    flat_scores = flat.scores.cpu().numpy()
+    async_flat = {
+        "leaf_round_s": leaf_s, "flat_round_s": flat_s,
+        "score_diff": float(np.abs(flat_scores - leaf_scores).max()),
+        "pending_diff": float((flat_new.pending - leaf_pending).abs().max()),
+        "decisions_equal": _settle_decisions(fed, [flat_scores], 8)
+        == _settle_decisions(fed, [leaf_scores], 8),
+        "stats": _stats_check(upd, spec, flat.losses)}
+    check(async_flat["score_diff"] <= LLM_SCORE_TOL
+          and async_flat["decisions_equal"]
+          and async_flat["pending_diff"] <= RTOL * max(1.0, float(
+              leaf_pending.abs().max())), f"flat async: {async_flat}")
+    keep = 1.0 - part.float()
+    w = flat.weights
+    del leaf_pending, flat, flat_new
+    kernels["fused_async_agg"] = _kernel_row(
+        "fused_async_agg", fused_round.fused_async_agg,
+        fused_round.fused_async_agg_ref, (upd, flat_st.pending, w, keep),
+        fused_round.hbm_bytes(8, D, 2)["minimum"], 4 * 8 * D, bw, f32_peak)
+    del upd, flat_st, gp, opt, task
+    proto = None
+    torch.cuda.empty_cache()
+    out["flat_sync"], out["flat_async"] = sync_flat, async_flat
+    out["kernels_at_llm_shape"] = kernels
+    out["flat_launches"] = flat_counts
+
+    # a same-seed rerun of the sync run's first round seals the same
+    # genesis and round block (the finalize block's timestamp differs)
+    again, rerun, again_hashes = _llm_run(LLM_RERUN, heldout)
+    check(again_hashes[:2] == hashes[:2], "llm_round: same-seed runs "
+          "sealed different blocks")
+    out["rerun"] = {"identical_blocks": 2, "round_wall_s":
+                    rerun["round_wall_s"], "settle_s": rerun["settle_s"],
+                    "ipfs_put_s": rerun["ipfs_put_s"]}
+    step = _worker_step(cfg, again.global_params, {
+        k: torch.from_numpy(v).to(dev) for k, v in heldout.items()})
+    flagged, cublas = _deterministic_probe(step)
+    out["nondeterministic_ops_flagged"] = flagged
+    out["cublas_notes"] = cublas
+    check(not flagged, f"llm_round: nondeterministic ops {flagged}")
+    out["worker_step_profile"] = _step_profile(step)
+    del again, step
+    torch.cuda.empty_cache()
+    emit(out)
+    return flat_counts
+
+
+def phase_dense_serve(name):
+    """smollm-135m and yi-6b: card against CPU at full width cut to 2
+    layers (f32 and bf16), then at full size twice (bf16, seeded weights):
+    the same tokens both times, prefill and decode times, peak memory.
+    Both have ``window == 0``: decode takes the plain ``decode_attention``,
+    and no kernel may launch."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    bw, _ = peaks(name)
+    out = {"phase": "dense_serve", "parity": DENSE_PARITY,
+           "serve": DENSE_SERVE, "tol": PARITY_TOL}
+    for arch in DENSE:
+        rec = {}
+        for dtype in ("float32", "bfloat16"):
+            cfg = get_config(arch).replace(dtype=dtype, num_layers=2)
+            params = api.init(cfg, torch.Generator().manual_seed(3),
+                              torch.device("cpu"))
+            t0 = time.monotonic()
+            cpu = serve(cfg, device="cpu", params=params, **DENSE_PARITY)
+            cpu_s = time.monotonic() - t0
+            reset_counts()
+            card = serve(cfg, device="cuda",
+                         params={k: v.cuda() for k, v in params.items()},
+                         **DENSE_PARITY)
+            _expect(f"dense parity {arch}", read_counts(),
+                    _trust_launches(0, 0))
+            rec[dtype] = parity_record(cpu, card, dtype, DENSE_PARITY["gen"])
+            rec[dtype]["cpu_serve_s"] = cpu_s
+            del params, cpu, card
+            torch.cuda.empty_cache()
+        cfg = get_config(arch)
+        B, P, G = DENSE_SERVE["batch"], DENSE_SERVE["prompt_len"], \
+            DENSE_SERVE["gen"]
+        dev = torch.device("cuda")
+        params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+        n_params = api.param_count(params)
+        weight_bytes = sum(v.numel() * v.element_size()
+                           for v in params.values())
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        r = serve(cfg, seed=0, **DENSE_SERVE)
+        peak = torch.cuda.max_memory_allocated()
+        _expect(f"dense serve {arch}", read_counts(), _trust_launches(0, 0))
+        check(r.tokens.shape == (B, G) and torch.isfinite(r.logits).all())
+        check(torch.equal(r.tokens, r.logits.float().argmax(-1)))
+        again = serve(cfg, seed=0, **DENSE_SERVE)
+        check(torch.equal(again.tokens, r.tokens),
+              f"{arch}: same-seed serve runs emitted different tokens")
+        rec["full"] = {
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "params": n_params, "weight_bytes": weight_bytes,
+            "prefill_ms": r.prefill_s * 1e3,
+            "prefill_tok_s": B * P / r.prefill_s,
+            "decode_ms_per_step": r.decode_s * 1e3 / (G - 1),
+            "decode_tok_s": B * (G - 1) / r.decode_s,
+            "rerun_prefill_ms": again.prefill_s * 1e3,
+            "rerun_decode_ms_per_step": again.decode_s * 1e3 / (G - 1),
+            "weight_stream_bound_ms_per_step": weight_bytes / bw * 1e3,
+            "max_memory_allocated": peak, "identical_tokens": True,
+            "sample_tokens": r.tokens[0, :16].tolist()}
+        out[arch] = rec
+        del r, again
+        torch.cuda.empty_cache()
+    emit(out)
 
 
 def main():
@@ -1570,6 +2238,7 @@ def main():
               file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  fails where the checkout lacks src/
+    t_start = time.monotonic()
     name, smi_line = phase_device()
     phase_build()
     table = phase_kernels(name)
@@ -1599,6 +2268,9 @@ def main():
     new_paths += [events_counts, phase_read_path(events_task)]
     del events_task
     new_paths += [phase_network(), phase_examples()]
+    phase_f4()
+    new_paths += [phase_llm_parity(), phase_llm_round(name)]
+    phase_dense_serve(name)
     for counts in new_paths:
         for k in ("trust_score", "trust_agg", "fused_async_agg"):
             launches[k] += counts[k]
@@ -1644,6 +2316,7 @@ def main():
         "bound_by": ssd_row["bound_by"], "library_ms": ssd_row["library_ms"],
         "shape": {k: ssd_row[k] for k in ("B", "S", "H", "dk", "dv", "chunk",
                                            "gates", "dtype")}})
+    emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     print(smi_line, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

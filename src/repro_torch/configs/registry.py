@@ -1,6 +1,7 @@
 """--arch <id> registry of the port: the archs ported so far, the paper's
-own CNN, h2o-danube-1.8b (the dense sliding-window decoder) and zamba2-7b
-(the Mamba2 + shared-attention hybrid). The other LLM configs of
+own CNN, the dense decoders h2o-danube-1.8b (sliding window), smollm-135m
+(tied embeddings) and yi-6b (GQA, RoPE theta 5e6), and zamba2-7b (the
+Mamba2 + shared-attention hybrid). The other LLM configs of
 ``repro.configs.registry`` wait for their slices."""
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from repro_torch.configs.base import ModelConfig
 _ARCH_MODULES = {
     "h2o-danube-1.8b":  "repro_torch.configs.h2o_danube_1_8b",
     "paper-net":        "repro_torch.configs.paper_net",
+    "smollm-135m":      "repro_torch.configs.smollm_135m",
+    "yi-6b":            "repro_torch.configs.yi_6b",
     "zamba2-7b":        "repro_torch.configs.zamba2_7b",
 }
 

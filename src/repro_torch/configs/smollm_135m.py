@@ -1,0 +1,20 @@
+"""smollm-135m — llama-arch small dense. [hf:HuggingFaceTB/SmolLM-135M]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m",
+    family="dense",
+    num_layers=30,
+    d_model=576,
+    num_heads=9,
+    num_kv_heads=3,
+    d_ff=1536,
+    vocab_size=49152,
+    tie_embeddings=True,
+    source="hf:HuggingFaceTB/SmolLM-135M",
+)
+
+
+def smoke_config() -> ModelConfig:
+    return CONFIG.replace(num_layers=2, d_model=288, num_heads=6, num_kv_heads=2,
+                          d_ff=512, vocab_size=512)

@@ -10,6 +10,11 @@ tree (the hybrid's ``tail`` of Mamba2 layers) takes its indices as keys
 bfloat16 of its own: ``params_from_jax`` takes JAX's bf16 arrays bit for
 bit, and ``params_to_jax`` returns bf16 leaves as exact float32 arrays.
 
+Optimizer state carries over for the LLM trees (``opt_state_from_jax`` /
+``opt_state_to_jax``): AdamW's ``m`` and ``v`` are trees like the params,
+its ``count`` an int array; SGD's ``momentum`` likewise. A leading worker
+dimension on every leaf (``fl_step.init_worker_opt``) passes through.
+
 The JAX CNN keeps its params as a nested dict of arrays in its own layout;
 the port keeps a flat dict of PyTorch-layout tensors. Three differences:
 
@@ -125,3 +130,20 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict:
     }
     return {layer: {"b": p[f"{layer}.b"], "w": np.ascontiguousarray(w[layer])}
             for layer in sorted(w)}
+
+
+def opt_state_from_jax(state, device="cpu") -> Dict:
+    """An LLM's optimizer state (AdamW ``{m, v, count}`` or SGD
+    ``{momentum}``, worker-stacked or not) → the port's layout: each tree a
+    flat dict as ``params_from_jax`` makes it, ``count`` an int32 tensor."""
+    out = {}
+    for k, v in state.items():
+        out[k] = (_tensor(np.asarray(v, np.int32), device) if k == "count"
+                  else params_from_jax(v, device))
+    return out
+
+
+def opt_state_to_jax(state: Dict) -> Dict:
+    """The inverse of ``opt_state_from_jax``, as nested numpy."""
+    return {k: (state[k].detach().cpu().numpy() if k == "count"
+                else params_to_jax(state[k])) for k in state}

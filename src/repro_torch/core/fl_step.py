@@ -4,9 +4,12 @@ Workers carry an explicit leading dim W on params, optimizer state and
 batch (W = num_clusters × workers_per_cluster). The round:
 
   1. broadcast the global params to all workers
-  2. ``local_steps`` of per-worker SGD(momentum) on each worker's own batch
-     (the CNN runs all W workers at once: grouped convolutions and batched
-     matmuls, so one backward gives every worker its own gradient)
+  2. ``local_steps`` of per-worker SGD(momentum) or AdamW on each worker's
+     own batch (the CNN runs all W workers at once: grouped convolutions
+     and batched matmuls, so one backward gives every worker its own
+     gradient; a decoder runs the workers one after another, one forward
+     and one ``autograd.grad`` each, so one worker's graph is alive at a
+     time, where the reference ``vmap``s them)
   3. per-worker update u_w = params_w − global
   4. trust statistics and scores (``core.trust``)
   5. trust-weighted aggregation; async mode folds in staleness discounts
@@ -14,10 +17,10 @@ batch (W = num_clusters × workers_per_cluster). The round:
   6. new global = global + aggregate
 
 Steps 3–5 have two implementations. The fused path
-(``FederationConfig.fused_trust_path``, auto-on for the CNN) packs the
-deltas into ONE (W, D) matrix (``kernels.pack``) and runs the trust
-kernels on it: K1 for the statistics, then K2 (sync) or K3 (async). The
-per-leaf path (``"off"``) works on the update dict in plain PyTorch
+(``FederationConfig.fused_trust_path``, auto-on for the CNN, ``"on"`` for
+any family) packs the deltas into ONE (W, D) matrix (``kernels.pack``)
+and runs the trust kernels on it: K1 for the statistics, then K2 (sync)
+or K3 (async). The per-leaf path (``"off"``) works on the update dict in plain PyTorch
 (``core.hierarchy``). Both share the score and weight math.
 
 Host-level protocol work (settlement, ledger blocks, IPFS, head rotation)
@@ -112,28 +115,53 @@ def make_fl_round(cfg: ModelConfig, fed: FederationConfig, tc: TrainConfig,
 
     ``fl_round(global_params, opt_state, batch, rngs=None,
     participation=None, async_state=None)``: batch leaves are
-    (W, local_steps, per_worker_batch, ...); ``rngs`` is a
-    ``torch.Generator`` on ``device`` for the conv2 dropout masks (None:
-    no dropout); participation (W,) 0/1; async_state an
-    ``async_agg.AsyncState``. Returns a ``RoundOutput`` (and the new async
-    state in async mode)."""
+    (W, local_steps, per_worker_batch, ...) — ``images``/``labels`` for the
+    CNN, ``tokens``/``labels`` (..., S) for a decoder; ``rngs`` is a
+    ``torch.Generator`` on ``device`` for the CNN's conv2 dropout masks
+    (None: no dropout; decoders have none); participation (W,) 0/1;
+    async_state an ``async_agg.AsyncState``. Returns a ``RoundOutput``
+    (and the new async state in async mode)."""
     dev = resolve_device(device)
-    loss_fn = api.loss_fn(cfg)
+    is_cnn = cfg.family == "cnn"
+    loss_fn = api.loss_fn(cfg, remat=tc.remat, kv_chunk=tc.kv_chunk)
+    lm_loss = None if is_cnn else api.lm_loss_fn(cfg, remat=tc.remat,
+                                                 kv_chunk=tc.kv_chunk)
 
     def grads_and_loss(params_w: Params, step_batch, mask):
+        if not is_cnn:
+            return lm_grads_and_loss(params_w, step_batch)
         p = {k: v.detach().requires_grad_(True) for k, v in params_w.items()}
         with torch.enable_grad():
             losses, _ = loss_fn(p, step_batch, mask)
             g = torch.autograd.grad(losses.sum(), list(p.values()))
         return clip_grads(dict(zip(p, g)), tc.grad_clip), losses.detach()
 
+    def lm_grads_and_loss(params_w: Params, step_batch):
+        """Each worker's loss and gradient in turn, into (W, ...) grads."""
+        W = step_batch["tokens"].shape[0]
+        grads = {k: torch.empty_like(v) for k, v in params_w.items()}
+        losses = torch.empty((W,), dtype=torch.float32, device=dev)
+        for w in range(W):
+            p = {k: v[w].detach().requires_grad_(True)
+                 for k, v in params_w.items()}
+            with torch.enable_grad():
+                loss, _ = lm_loss(p, api.worker(step_batch, w))
+                g = torch.autograd.grad(loss, list(p.values()))
+            for k, gk in zip(p, g):
+                grads[k][w] = gk
+            losses[w] = loss.detach()
+        return clip_grads(grads, tc.grad_clip), losses
+
     def draw_mask(rngs, W: int, B: int):
-        return None if rngs is None else cnn.dropout_mask(rngs, W, B, cfg, dev)
+        if rngs is None or not is_cnn:
+            return None
+        return cnn.dropout_mask(rngs, W, B, cfg, dev)
 
     @torch.no_grad()
     def fl_round(global_params: Params, opt_state, batch, rngs=None,
                  participation=None, async_state=None):
-        W, L, B = batch["labels"].shape[:3]
+        # leaves (W, local_steps, B, ...): images/labels or tokens/labels
+        W, L, B = next(iter(batch.values())).shape[:3]
         first = next(iter(global_params.values()))
         if first.device.type != dev.type:
             raise ValueError(f"params on {first.device}, round built for "

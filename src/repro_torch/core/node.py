@@ -939,8 +939,9 @@ class FederatedTask:
 
     @torch.no_grad()
     def evaluate_per_worker(self, batch_w: Dict[str, np.ndarray]):
-        """Per-worker eval accuracy of the *global* model on each worker's
-        local shard (the per-worker curves of Figs. 5/6)."""
+        """Per-worker eval metrics of the *global* model on each worker's
+        local shard (the per-worker curves of Figs. 5/6): accuracy and loss
+        for the CNN, loss and aux for a decoder."""
         batch = {k: self._to_device(v) for k, v in batch_w.items()}
         W = batch["labels"].shape[0]
         _, metrics = self._loss_fn(api.stack(self.global_params, W), batch)

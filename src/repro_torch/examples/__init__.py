@@ -1,8 +1,11 @@
 """The reference's examples on the port (``examples/*.py`` of the repo
 root are the JAX package's). Run one with
 ``PYTHONPATH=src python -m repro_torch.examples.<name>`` — on the card,
-or with ``--device cpu`` on the CPU. Each ``main`` takes the sizes as
-keyword arguments (defaults: the reference example's) and ``device``."""
+or with ``--device cpu`` on the CPU. The six: ``quickstart``,
+``async_federation``, ``multi_task_federation``, ``poisoning_defense``,
+``decentralized_network`` and ``federated_llm`` (the same protocol over a
+dense LLM, ``--arch``). Each ``main`` takes the sizes as keyword arguments
+(defaults: the reference example's) and ``device``."""
 from __future__ import annotations
 
 import sys

@@ -196,6 +196,20 @@ def check_updates(updates: torch.Tensor) -> None:
         raise ValueError("updates must be contiguous")
 
 
+def check_no_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
+    """No kernel defines a backward: its outputs come from ``torch.empty``
+    and carry no graph. On the card, refuse a call that autograd would
+    differentiate through (grad mode on and an input that requires grad),
+    whose gradient would otherwise be lost without a word (fault F4). The
+    plain versions on the CPU are differentiable and need no such check."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            f"requires grad; call it under torch.no_grad() (or on CPU "
+            f"tensors, whose plain version autograd follows)")
+
+
 def check_operand(x: torch.Tensor, name: str, shape: tuple,
                   like: torch.Tensor) -> None:
     """A float32 operand of a kernel: on ``like``'s device, this shape,

@@ -48,6 +48,8 @@ def fused_async_agg(updates: torch.Tensor, pending: torch.Tensor,
     _build.check_operand(keep, "keep", (W,), updates)
     if updates.device.type == "cpu":
         return fused_async_agg_ref(updates, pending, weights, keep)
+    _build.check_no_grad("fused_async_agg", updates, pending, weights,
+                         keep)
     dev = updates.device
     f32 = dict(dtype=torch.float32, device=dev)
     partial = torch.empty((_build.splits(W), D), **f32)

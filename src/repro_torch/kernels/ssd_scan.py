@@ -215,6 +215,7 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ssd_scan_ref(q, k, v, a, i, chunk=chunk,
                             initial_state=initial_state)
     _check_card(q, k, v, chunk)
+    _build.check_no_grad("ssd_scan", q, k, v, a, i, initial_state)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     dev = q.device

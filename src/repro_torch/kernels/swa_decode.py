@@ -132,6 +132,7 @@ def swa_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return swa_decode_ref(q, k_cache, v_cache, cur_index, window)
     _check_card(q, k_cache, v_cache)
+    _build.check_no_grad("swa_decode", q, k_cache, v_cache)
     B, H, hd = q.shape
     S, KV = k_cache.shape[1], k_cache.shape[2]
     p = plan(cur_index, window)

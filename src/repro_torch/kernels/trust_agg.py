@@ -60,6 +60,7 @@ def trust_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     _build.check_operand(weights, "weights", (W,), updates)
     if updates.device.type == "cpu":
         return trust_agg_ref(updates, weights)
+    _build.check_no_grad("trust_agg", updates, weights)
     p = plan(W, D, updates.element_size(), updates.data_ptr() % 16 == 0)
     dev = _build.device_of(updates)
     cnt = part = None            # one split writes out directly

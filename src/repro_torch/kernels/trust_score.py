@@ -100,6 +100,7 @@ def trust_score_stats(updates: torch.Tensor):
     _build.check_updates(updates)
     if updates.device.type == "cpu":
         return trust_score_ref(updates)
+    _build.check_no_grad("trust_score_stats", updates)
     W, D = updates.shape
     return _launch(updates, plan(W, D, updates.element_size()))
 

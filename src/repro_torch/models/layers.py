@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import mathfn
 from repro_torch.kernels.swa_decode import swa_decode
@@ -33,14 +34,17 @@ NEG_INF = -1e30
 
 def dense_init(gen: torch.Generator, shape, in_dim: int, dtype,
                device) -> torch.Tensor:
+    """Normal(0, 1/in_dim), drawn on the generator's device (a CPU
+    generator gives the same weights for a seed on every device) and
+    moved to ``device``."""
     scale = 1.0 / math.sqrt(in_dim)
-    return (torch.randn(shape, generator=gen, device=device) * scale
-            ).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale
+            ).to(device=device, dtype=dtype)
 
 
 def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
-    return (torch.randn(shape, generator=gen, device=device) * 0.02
-            ).to(dtype)
+    return (torch.randn(shape, generator=gen, device=gen.device) * 0.02
+            ).to(device=device, dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -49,8 +53,9 @@ def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm in f32, returned in ``x.dtype`` (forward only: the
-    reference's custom VJP serves training)."""
+    """RMSNorm in f32, returned in ``x.dtype``. Autograd gives the
+    gradient of the reference's hand-written VJP: f32 math, cotangents cast
+    back to the primal dtypes."""
     xf = x.float()
     r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (xf * r * weight).to(x.dtype)
@@ -111,6 +116,12 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0.
     window > 0 => sliding-window mask (q_pos - kv_pos < window).
     Returns (B, Sq, H, hd).
+
+    Under grad (grad mode on and an input that requires grad) each chunk
+    runs out of place under ``torch.utils.checkpoint``, as the reference's
+    ``jax.checkpoint`` chunk body: backward recomputes one chunk's scores
+    at a time instead of keeping every chunk's. Otherwise (serve) the chunk
+    overwrites its score tensor in place. Both give the same values.
     """
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
@@ -132,23 +143,41 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.zeros((B, KV, G, Sq, hd), dtype=torch.float32,
                       device=q.device)
     qf = qs.float()
+    grad = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
     for c in range(0, Skv, kv_chunk):
-        k_i, v_i = k[:, c:c + kv_chunk], v[:, c:c + kv_chunk]
-        s = _gqa_scores(qf, k_i)                              # (B,KV,G,Sq,chunk)
         mask = _attn_mask(q_positions, kv_positions[c:c + kv_chunk], causal,
                           window)
-        s.masked_fill_(~mask, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = mathfn.exp_(s.sub_(m_new[..., None]))            # in place: s dies
-        corr = mathfn.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v_i.dtype).float(),
-                          v_i.float())
-        acc = acc * corr[..., None] + pv
-        m = m_new
-        del s, p, pv
+        args = (qf, k[:, c:c + kv_chunk], v[:, c:c + kv_chunk], mask, m, l,
+                acc)
+        if grad:
+            m, l, acc = checkpoint(_chunk_step, *args, False,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            m, l, acc = _chunk_step(*args, True)
     o = acc / l.clamp_min(1e-30)[..., None]                   # (B,KV,G,Sq,hd)
     return o.movedim(3, 1).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _chunk_step(qf, k_i, v_i, mask, m, l, acc, inplace: bool):
+    """One KV chunk of the online softmax: (m, l, acc) → the next ones.
+    ``inplace`` reuses the chunk's score tensor for its probabilities (no
+    autograd), else every op is out of place."""
+    s = _gqa_scores(qf, k_i)                                  # (B,KV,G,Sq,chunk)
+    if inplace:
+        s.masked_fill_(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = mathfn.exp_(s.sub_(m_new[..., None]))            # s dies here
+    else:
+        s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = mathfn.exp(s - m_new[..., None])
+    corr = mathfn.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    pv = torch.einsum("bkgqs,bskh->bkgqh", p.to(v_i.dtype).float(),
+                      v_i.float())
+    return m_new, l, acc * corr[..., None] + pv
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -191,13 +220,13 @@ def init_gqa(gen: torch.Generator, d_model: int, num_heads: int,
 
 def apply_gqa(params: Params, x: torch.Tensor, *, num_heads: int,
               num_kv_heads: int, head_dim: int, positions: torch.Tensor,
-              rope_theta: float, window: int = 0,
+              rope_theta: float, window: int = 0, kv_chunk: int = 1024,
               cache: Optional[Params] = None,
               cur_index: Optional[int] = None):
     """Causal self-attention. x: (B, S, d). Returns (out, kv).
 
-    Full sequence (no ``cache``): blocked attention over 1024-slot KV
-    chunks; ``kv`` holds the projected k and v, (B, S, KV, hd) each, for
+    Full sequence (no ``cache``): blocked attention over ``kv_chunk``-slot
+    KV chunks; ``kv`` holds the projected k and v, (B, S, KV, hd) each, for
     the caller to put into a decode cache.
 
     Decode (``cache`` given, S == 1): writes this token's k/v into slot
@@ -225,7 +254,7 @@ def apply_gqa(params: Params, x: torch.Tensor, *, num_heads: int,
 
     o = blocked_attention(q, k, v, q_positions=positions,
                           kv_positions=positions, causal=True,
-                          window=window, kv_chunk=1024)
+                          window=window, kv_chunk=kv_chunk)
     return o.reshape(B, S, -1) @ params["wo"], {"k": k, "v": v}
 
 

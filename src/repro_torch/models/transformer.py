@@ -6,8 +6,12 @@ Params are one flat dict: ``embed`` (V, d), ``final_norm`` (d,),
 stacked on a leading layer axis under ``layers.<name>`` (``layers.attn.wq``
 is (L, d, H·hd)), so the reference's stacked tree maps onto it key for key
 (``convert.py``). The reference scans the stack with ``lax.scan``; the port
-loops over the layers in Python. The MoE and VLM families and MLA
-attention wait for their slices.
+loops over the layers in Python, on views of the stacked leaves taken
+once a forward (``unbind``, whose backward stacks the layers' gradients in
+one copy). ``remat`` recomputes each layer in backward
+(``torch.utils.checkpoint``), the reference's ``jax.checkpoint`` on its
+scanned body. The MoE and VLM families and MLA attention wait for their
+slices.
 
 The decode cache is a dict of two stacked (L, B, S, KV, hd) tensors, written
 in place: ``decoder_decode_step`` fills slot ``cur_index`` of each layer and
@@ -15,9 +19,11 @@ returns the same tensors.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -79,18 +85,16 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     return params
 
 
-def layer_params(params: Params, layer: int) -> Dict[str, Params]:
-    """Layer ``layer``'s params as views: {"attn": {...}, "mlp": {...},
-    "norm1", "norm2"}."""
-    out: Dict = {"attn": {}, "mlp": {}}
+def all_layer_params(params: Params, cfg: ModelConfig) -> List[Dict]:
+    """Every layer's params as views, {"attn": {...}, "mlp": {...},
+    "norm1", "norm2"} a layer, from one ``unbind`` of each stacked leaf."""
+    out = [{"attn": {}, "mlp": {}} for _ in range(cfg.num_layers)]
     for k, v in params.items():
         if not k.startswith(LAYERS):
             continue
         group, _, name = k[len(LAYERS):].rpartition(".")
-        if group:
-            out[group][name] = v[layer]
-        else:
-            out[name] = v[layer]
+        for lp, t in zip(out, v.unbind(0)):
+            (lp[group] if group else lp)[name] = t
     return out
 
 
@@ -100,8 +104,9 @@ def layer_params(params: Params, layer: int) -> Dict[str, Params]:
 
 def embed_tokens(params: Params, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) integer → (B, S, d)."""
-    return params["embed"][tokens]
+    """tokens: (B, S) integer → (B, S, d). ``F.embedding``: its backward
+    sums the rows of repeated tokens in a fixed order on the card too."""
+    return F.embedding(tokens, params["embed"])
 
 
 def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -122,29 +127,44 @@ def _block(lp, cfg: ModelConfig, x: torch.Tensor, **attn_kw):
     return x + L.apply_swiglu(lp["mlp"], h), kv
 
 
+def _remat_block(lp, cfg: ModelConfig, x: torch.Tensor, positions,
+                 kv_chunk: int) -> torch.Tensor:
+    return _block(lp, cfg, x, positions=positions, kv_chunk=kv_chunk)[0]
+
+
 def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                    *, prefill_cache_len: int = 0):
-    """Returns (logits (B, S, V), aux_loss); in prefill mode
+                    *, remat: bool = False, kv_chunk: int = 1024,
+                    prefill_cache_len: int = 0, return_hidden: bool = False):
+    """Returns (logits (B, S, V), aux_loss); with ``return_hidden`` the
+    final-normed hidden states (B, S, d) instead of the logits (the loss
+    applies the head itself, chunk by chunk). In prefill mode
     (``prefill_cache_len > 0``) returns (last_logits (B, 1, V), cache) with
     the cache's (L, B, prefill_cache_len, KV, hd) tensors in ``cfg.dtype``
-    holding each layer's K/V in the first S slots and zeros after."""
+    holding each layer's K/V in the first S slots and zeros after.
+    ``remat`` checkpoints each layer when autograd records (training)."""
     check_ported(cfg)
     x = embed_tokens(params, cfg, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)
     prefill = prefill_cache_len > 0
+    remat = remat and torch.is_grad_enabled() and not prefill
     cache = None
     if prefill:
         cache = make_decoder_cache(cfg, B, prefill_cache_len, x.device)
-    for layer in range(cfg.num_layers):
-        x, kv = _block(layer_params(params, layer), cfg, x,
-                       positions=positions)
+    for layer, lp in enumerate(all_layer_params(params, cfg)):
+        if remat:
+            x = checkpoint(_remat_block, lp, cfg, x, positions, kv_chunk,
+                           use_reentrant=False, preserve_rng_state=False)
+            continue
+        x, kv = _block(lp, cfg, x, positions=positions, kv_chunk=kv_chunk)
         if prefill:
             cache["k"][layer, :, :S] = kv["k"]
             cache["v"][layer, :, :S] = kv["v"]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if prefill:
         return x[:, -1:, :] @ _head(params, cfg), cache
+    if return_hidden:
+        return x, 0.0
     return x @ _head(params, cfg), 0.0
 
 
@@ -174,10 +194,9 @@ def decoder_decode_step(params: Params, cfg: ModelConfig, cache: Params,
     check_ported(cfg)
     x = embed_tokens(params, cfg, tokens)                   # (B, 1, d)
     positions = torch.full((1,), cur_index, device=x.device)
-    for layer in range(cfg.num_layers):
+    for layer, lp in enumerate(all_layer_params(params, cfg)):
         layer_cache = {"k": cache["k"][layer], "v": cache["v"][layer]}
-        x, _ = _block(layer_params(params, layer), cfg, x,
-                      positions=positions, cache=layer_cache,
+        x, _ = _block(lp, cfg, x, positions=positions, cache=layer_cache,
                       cur_index=cur_index)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), cache

@@ -4,7 +4,10 @@ SGD(momentum) matches the paper's §IV hyperparameters (lr=0.01,
 momentum=0.5, dampening=0, weight_decay=0, nesterov=False) with PyTorch
 SGD semantics (buf = μ·buf + (1−damp)·g ; p −= lr·buf). AdamW is the
 LLM-config default; its step ``count`` is per worker ((W,) int32). Updates
-compute in f32 and return new tensors; nothing is updated in place.
+compute in f32 and return new tensors; nothing is updated in place. Square
+roots go through ``repro_torch.mathfn``: on the CPU, ``torch.sqrt`` of
+float32 is MKL's vector math, whose first call in a process can be wrong
+(fault F2, ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch import mathfn
 from repro_torch.configs.base import TrainConfig
 
 Params = Dict[str, torch.Tensor]
@@ -67,7 +71,7 @@ def adamw_update(params: Params, grads: Params, state, tc: TrainConfig):
         m0, v0 = state["m"][k], state["v"][k]
         m = b1 * m0.float() + (1 - b1) * g
         v = b2 * v0.float() + (1 - b2) * g * g
-        step = (m / bc(c1, m)) / (torch.sqrt(v / bc(c2, v)) + tc.adam_eps)
+        step = (m / bc(c1, m)) / (mathfn.sqrt(v / bc(c2, v)) + tc.adam_eps)
         if tc.weight_decay:
             step = step + tc.weight_decay * p.float()
         new_p[k] = (p.float() - tc.lr * step).to(p.dtype)
@@ -97,7 +101,7 @@ def clip_grads(grads: Params, max_norm: float) -> Params:
         return grads
     sq = sum(g.float().square().reshape(g.shape[0], -1).sum(dim=1)
              for g in grads.values())
-    scale = torch.clamp(max_norm / torch.clamp(torch.sqrt(sq), min=1e-12),
+    scale = torch.clamp(max_norm / torch.clamp(mathfn.sqrt(sq), min=1e-12),
                         max=1.0)
     return {k: (g * scale.reshape((-1,) + (1,) * (g.ndim - 1))).to(g.dtype)
             for k, g in grads.items()}

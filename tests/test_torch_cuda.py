@@ -399,3 +399,57 @@ def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
         ssd_scan.ssd_scan(q.transpose(2, 3).contiguous().transpose(2, 3), k,
                           v, a, i, chunk=128)
     assert ssd_scan.ssd_scan.launches == before
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_grad_on_card(cuda):
+    """Fault F4: no kernel has a backward, so each of the five wrappers
+    raises on a CUDA input that requires grad while grad mode is on,
+    before it launches; the same call under ``no_grad`` launches once. A
+    zamba2 forward (2 Mamba2 layers and the shared block, smoke widths)
+    whose params require grad raises through K4; under ``no_grad`` it
+    runs and launches K4 once a Mamba2 layer (the raising call launched
+    none)."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import api
+    u, pending, weights, keep = _inputs(8, 4096, "bfloat16", cuda)
+    q, k, v, a, i, _ = _ssd_inputs(1, 256, 2, 16, 16, "model", False,
+                                   "float32", cuda)
+    rng = np.random.default_rng(5)
+    sq, kc, vc = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(cuda) for s in ((2, 8, 64), (2, 300, 2, 64),
+                                        (2, 300, 2, 64)))
+    calls = [
+        (trust_score.trust_score_stats, lambda g: (g(u),)),
+        (trust_agg.trust_agg, lambda g: (g(u), weights)),
+        (fused_round.fused_async_agg, lambda g: (u, g(pending), weights,
+                                                 keep)),
+        (ssd_scan.ssd_scan, lambda g: (g(q), k, v, a, i)),
+        (swa_decode.swa_decode, lambda g: (sq, kc, g(vc), 299, 128)),
+    ]
+    for fn, args in calls:
+        kw = {"chunk": 128} if fn is ssd_scan.ssd_scan else {}
+        before = fn.launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args(lambda t: t.clone().requires_grad_(True)), **kw)
+        assert fn.launches == before, fn.__name__
+        with torch.no_grad():
+            fn(*args(lambda t: t.clone().requires_grad_(True)), **kw)
+        fn(*args(lambda t: t), **kw)       # grad mode, nothing requires it
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2, fn.__name__
+
+    cfg = get_smoke_config("zamba2-7b").replace(num_layers=2)
+    params = api.init(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    tokens = torch.zeros((1, cfg.ssm.chunk_size), dtype=torch.long,
+                         device=cuda)
+    trained = {n: p.requires_grad_(True) for n, p in params.items()}
+    before = ssd_scan.ssd_scan.launches
+    with pytest.raises(RuntimeError, match="ssd_scan: the CUDA kernel has "
+                       "no backward"):
+        api.forward(trained, cfg, {"tokens": tokens})
+    with torch.no_grad():
+        logits, _ = api.forward(trained, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    assert ssd_scan.ssd_scan.launches == before + 2

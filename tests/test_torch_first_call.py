@@ -181,12 +181,15 @@ def test_mathfn_does_not_depend_on_mkl_kernel_choice():
 def test_plain_paths_do_not_enter_mkl_vector_math():
     """No CPU plain path computes exp, log, sqrt, tanh or erf through an op
     that MKL's vector math library serves: the kernels' plain versions, the
-    prefill and decode attention, the Mamba2 decode step and the trust
-    scores."""
-    from repro_torch.configs.base import FederationConfig
+    prefill and decode attention, the Mamba2 decode step, the trust
+    scores, and training: the LLM loss with its backward, the attention's
+    chunked backward, and the clipped AdamW step."""
+    from repro_torch.configs.base import FederationConfig, TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
     from repro_torch.core import trust
     from repro_torch.kernels import ref
-    from repro_torch.models import layers, ssm
+    from repro_torch.models import api, layers, ssm
+    from repro_torch.optim import optimizers
 
     rng = np.random.default_rng(0)
 
@@ -199,6 +202,34 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
     pos = torch.arange(256)
     c = u.mean(0)
     stats = trust.TrustStats(u @ c, (u * u).sum(1), (c * c).sum(), w)
+    cfg = get_smoke_config("smollm-135m").replace(dtype="float32")
+    lm_params = api.init(cfg, torch.Generator().manual_seed(0),
+                         torch.device("cpu"))
+    toks = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 64)).astype(np.int64))
+    tc = TrainConfig(optimizer="adamw", grad_clip=1.0, weight_decay=0.01)
+    big = {"a": t(3, 40, 64), "b": t(3, 5000)}   # > 2048 values a leaf
+
+    def lm_loss_and_grad():
+        p = {k: v.requires_grad_(True) for k, v in lm_params.items()}
+        loss, _ = api.lm_loss_fn(cfg, remat=True, kv_chunk=32)(
+            p, {"tokens": toks, "labels": toks})
+        torch.autograd.grad(loss, list(p.values()))
+
+    def attention_backward():
+        qkv = [t(1, 256, 8, 16).requires_grad_(True),
+               t(1, 256, 2, 16).requires_grad_(True),
+               t(1, 256, 2, 16).requires_grad_(True)]
+        o = layers.blocked_attention(*qkv, q_positions=pos,
+                                     kv_positions=pos, window=0, kv_chunk=64)
+        torch.autograd.grad(o.square().sum(), qkv)
+
+    def adamw_step():
+        state = optimizers.adamw_init(big)
+        state["count"] = torch.zeros((3,), dtype=torch.int32)
+        grads = optimizers.clip_grads({k: 50 * v for k, v in big.items()},
+                                      tc.grad_clip)
+        optimizers.adamw_update(big, grads, state, tc)
     paths = {
         "trust_score_ref": lambda: ref.trust_score_ref(u),
         "trust_agg_ref": lambda: ref.trust_agg_ref(u, w),
@@ -217,6 +248,9 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
             t(4, 8).abs(), t(4, 8, 16, 16)),
         "scores_from_stats": lambda: trust.scores_from_stats(
             stats, FederationConfig()),
+        "lm_loss_and_grad": lm_loss_and_grad,
+        "blocked_attention_backward": attention_backward,
+        "adamw_update": adamw_step,
     }
     for name, fn in paths.items():
         with _AtenOps() as rec:

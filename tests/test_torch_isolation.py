@@ -49,6 +49,7 @@ def test_port_walk_covers_every_package():
 VERBATIM = {
     "configs/base.py": (), "configs/paper_net.py": (),
     "configs/h2o_danube_1_8b.py": (), "configs/zamba2_7b.py": (),
+    "configs/smollm_135m.py": (), "configs/yi_6b.py": (),
     "data/datasets.py": (), "chain/contract.py": (), "chain/proofs.py": (),
     "chain/ledger.py": (847,),
     "core/async_sim.py": (), "core/reputation.py": (),
@@ -85,7 +86,9 @@ def test_protocol_imports_with_jax_and_repro_blocked():
             "repro_torch.examples.async_federation, "
             "repro_torch.examples.multi_task_federation, "
             "repro_torch.examples.poisoning_defense, "
-            "repro_torch.examples.decentralized_network; "
+            "repro_torch.examples.decentralized_network, "
+            "repro_torch.examples.federated_llm, "
+            "repro_torch.launch.train; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),

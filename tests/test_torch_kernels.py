@@ -209,6 +209,50 @@ def test_trust_score_plan_at_the_paper_shapes():
         trust_score.plan(trust_score.MAX_W + 1, 21840, 4)
 
 
+def test_trust_score_plan_at_smollm_full_size():
+    """The LLM round's flat pack: W = 8 rows of D = 134,515,008 (smollm-135m,
+    bf16; f32 too). One block a cluster, 256-byte strips, 132 clusters
+    walking ~8k strips each. D and W · D fit the kernels' 32-bit int
+    arguments, but the matrix's byte offsets (and K3's f32 pending) pass
+    2^31: the kernels form row · D in 64 bits."""
+    D = 134_515_008
+    for isz in (2, 4):
+        p = trust_score.plan(8, D, isz)
+        assert p[:2] == (1, 256) and p.rows == 8
+        assert p.clusters == trust_score.SMS
+        assert (p.strips - 1) * p.cols < D <= p.strips * p.cols
+    assert 8 * D < 2 ** 31 < 8 * D * 2
+    src = (_build.CSRC / "trust_score.cu").read_text()
+    assert "const T* p = u + row * D + col;" in src and \
+        "int64_t row, int64_t col" in src
+    for name, frag in (("trust_agg.cu", "(int64_t)(r + i) * step"),
+                       ("fused_async_agg.cu", "(int64_t)r * D + d0")):
+        assert frag in (_build.CSRC / name).read_text(), name
+
+
+def test_grad_guard_rejects_exactly_what_it_should():
+    """``_build.check_no_grad`` (fault F4): raises when grad mode is on and
+    an input requires grad; passes under ``no_grad``, for inputs that do
+    not require grad, and for absent (None) inputs."""
+    x, y = torch.ones(3), torch.ones(3, requires_grad=True)
+    _build.check_no_grad("k", x, None)
+    with pytest.raises(RuntimeError, match="k: the CUDA kernel has no "
+                       "backward"):
+        _build.check_no_grad("k", x, y)
+    with pytest.raises(RuntimeError):
+        _build.check_no_grad("k", (y * 2)[:1])
+    with torch.no_grad():
+        _build.check_no_grad("k", x, y)
+    with torch.inference_mode():
+        _build.check_no_grad("k", y)
+    _build.check_no_grad("k", y.detach())
+    # the CPU plain versions stay differentiable through the wrappers
+    u = torch.ones((2, 5), requires_grad=True)
+    w = torch.full((2,), 0.5)
+    trust_agg.trust_agg(u, w).sum().backward()
+    torch.testing.assert_close(u.grad, torch.full((2, 5), 0.5))
+
+
 def test_trust_score_constants_match_the_kernel():
     """The plan's limits are the kernel's: THREADS ``kThreads``,
     ROWS_A_THREAD ``rows_a_thread`` and the widest strip ``kMaxStrip`` in

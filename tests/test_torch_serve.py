@@ -363,13 +363,19 @@ def test_serve_cli_prints_the_reference_lines(capsys):
 
 
 def test_registry_holds_only_ported_archs():
-    assert ARCH_IDS == [ARCH, "zamba2-7b"]
+    assert ARCH_IDS == [ARCH, "smollm-135m", "yi-6b", "zamba2-7b"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.window) == (24, 2560, 32, 8, 80,
                                                      4096)
+    sm, yi = get_config("smollm-135m"), get_config("yi-6b")
+    assert (sm.num_layers, sm.d_model, sm.num_heads, sm.num_kv_heads,
+            sm.d_ff, sm.vocab_size, sm.tie_embeddings) == (
+                30, 576, 9, 3, 1536, 49152, True)
+    assert (yi.num_layers, yi.d_model, yi.num_kv_heads, yi.rope_theta,
+            yi.window) == (32, 4096, 4, 5_000_000.0, 0)
     with pytest.raises(KeyError):
-        get_config("yi-6b")
+        get_config("qwen2-moe-a2.7b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -392,5 +398,5 @@ def test_convert_round_trip_decoder(jref, dtype):
     mine = api.init(cfg, torch.Generator().manual_seed(0), "cpu")
     assert {k: (tuple(v.shape), v.dtype) for k, v in mine.items()} == \
         {k: (tuple(v.shape), v.dtype) for k, v in p.items()}
-    assert transformer.layer_params(mine, 1)["attn"]["wq"].shape == (256,
-                                                                     256)
+    assert transformer.all_layer_params(mine, cfg)[1]["attn"]["wq"].shape \
+        == (256, 256)
