@@ -33,17 +33,11 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-# rows of the update matrix per W-split of K3's column reduction (a block's
-# weights/keep slice sits in shared memory: at most 256, kMaxRows in
-# csrc/fused_async_agg.cu)
-SPLIT_ROWS = 128
-
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "repro_trust_score": [_P] + [_I] * 7 + [_P] * 6,
     "repro_trust_agg": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
-    "repro_fused_async_agg": [_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P,
-                              _P],
+    "repro_fused_async_agg": [_P, _I, _P, _P, _P] + [_I] * 5 + [_P] * 5,
     "repro_swa_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,
                          _I, _I, _I, _P, _P, _P, _P],
     "repro_ssd_scan": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P, _P, _P],
@@ -53,11 +47,6 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of this process's build
 build_log = ""                          # nvcc/ptxas output of that build
-
-
-def splits(W: int) -> int:
-    """Number of W-splits (rows of the partials buffer) for W rows."""
-    return -(-W // SPLIT_ROWS)
 
 
 def _nvcc() -> str:

@@ -155,6 +155,96 @@ def test_trust_agg_is_one_deterministic_launch_on_card(cuda, W, D, dtype):
     assert all("trust_agg" in n for n in device), device
 
 
+# K3 over the W of its plans: one row split of 32-thread tiles below W 128,
+# then 128-thread tiles in 2 (W 129), 13 (W 4096 f32, W 10240) or 24 (W 4096
+# bf16) splits combined inside the launch; D = 21840
+# (the paper CNN) and D = 21839 (one column per thread); and once at the
+# LLM round's flat pack, W 8, D 134,515,008 bf16 (byte offsets past 2^31)
+K3_LLM = (8, 134_515_008, "bfloat16")
+
+
+def _k3_card_inputs(W, D, dtype, dev):
+    """K3's operands made on the card (the LLM pack is too large to make
+    on the host in a test's time)."""
+    if (W, D, dtype) != K3_LLM:
+        return _inputs(W, D, dtype, dev)
+    gen = torch.Generator(device=dev).manual_seed(W + D)
+    return (torch.randn((W, D), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((W, D), generator=gen, device=dev),
+            torch.rand((W,), generator=gen, device=dev),
+            (torch.rand((W,), generator=gen, device=dev) > 0.5).float())
+
+
+def _k3_tol(e):
+    return 1e-4 * max(1.0, float(e.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,D,dtype", [
+    (W, D, dt) for W in (1, 7, 16, 129, 4096, 10240) for D in (21840, 21839)
+    for dt in ("float32", "bfloat16")] + [K3_LLM])
+def test_fused_async_agg_matches_plain_version_on_card(cuda, W, D, dtype):
+    """The aggregate within 1e-4 of the largest plain value; the new
+    pending buffer, the same elementwise operations, equal bit for bit. At
+    one row split the call allocates its two outputs and nothing else."""
+    args = _k3_card_inputs(W, D, dtype, cuda)
+    before = fused_round.fused_async_agg.launches
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    agg, newp = fused_round.fused_async_agg(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - held
+    assert fused_round.fused_async_agg.launches == before + 1
+    p = fused_round.plan(W, D, args[0].element_size())
+    if p.splits == 1:          # the allocator rounds each up to 2 MiB
+        assert grown <= 4 * D + 4 * W * D + 2 * 2 ** 21, grown
+    want_agg, want_newp = ref.fused_async_agg_ref(*args)
+    assert agg.dtype == newp.dtype == torch.float32
+    assert agg.shape == (D,) and newp.shape == (W, D)
+    assert newp.data_ptr() != args[1].data_ptr()
+    torch.testing.assert_close(agg, want_agg, rtol=0, atol=_k3_tol(want_agg))
+    assert torch.equal(newp, want_newp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,D,dtype", [(16, 21840, "float32"),
+                                       (4096, 21840, "float32"),
+                                       (4096, 21840, "bfloat16"),
+                                       (10240, 21840, "float32"),
+                                       (129, 21839, "bfloat16"), K3_LLM])
+def test_fused_async_agg_is_one_deterministic_launch_on_card(cuda, W, D,
+                                                             dtype):
+    """Two launches give the same bits, and one call is one device kernel
+    (one kernel launch, no copy or memset, among the runtime calls the
+    profiler records): the splits are summed inside the launch."""
+    args = _k3_card_inputs(W, D, dtype, cuda)
+    a, b = fused_round.fused_async_agg(*args), \
+        fused_round.fused_async_agg(*args)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    del a, b
+    enqueued, device = _build.launch_records(
+        lambda: fused_round.fused_async_agg(*args))
+    assert enqueued == ["cudaLaunchKernel"] * 4, enqueued
+    assert all("fused_async_agg" in n for n in device), device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,D,dtype", [(16, 21840, "float32"),
+                                       (4096, 21840, "float32"), K3_LLM])
+def test_fused_async_agg_tolerance_rejects_planted_faults_on_card(cuda, W, D,
+                                                                 dtype):
+    """The check above fails the plain version with each planted fault of
+    ``fused_round.FAULTS`` (keep ignored, pending not added, the last row
+    dropped, a split summed twice, the weights shifted by a row)."""
+    args = _k3_card_inputs(W, D, dtype, cuda)
+    want = ref.fused_async_agg_ref(*args)
+    for fault in fused_round.FAULTS:
+        bad = ref.fused_async_agg_ref(*args, fault=fault)
+        assert any(float((x - e).abs().max()) > _k3_tol(e)
+                   for x, e in zip(bad, want)), fault
+        del bad
+
+
 @pytest.mark.cuda
 def test_kernels_are_bitwise_deterministic_on_card(cuda):
     """Two launches on the same inputs give the same bits: no atomics."""

@@ -119,8 +119,13 @@ def test_hbm_accounting():
     k1 = trust_score.hbm_bytes(W, D, 4)
     assert k1["update_read"] == W * D * 4
     assert k1["minimum"] < k1["total"]
-    assert _build.splits(W) == -(-W // _build.SPLIT_ROWS)
-    assert _build.SPLIT_ROWS <= 256       # kMaxRows in fused_async_agg.cu
+    # K3 in one launch: its splits are the plan's, and their f32 sums are
+    # the only traffic beyond the minimum (none with one split)
+    k3 = fused_round.hbm_bytes(W, D, 4)
+    k3_plan = fused_round.plan(W, D, 4)
+    assert k3_plan.splits == -(-W // k3_plan.rows) > 1
+    assert k3_plan.threads <= fused_round.MAX_THREADS == 256  # kMaxThreads
+    assert k3["total"] - k3["minimum"] == 2 * k3_plan.splits * D * 4
     # K2 in one launch: the matrix once, plus its splits' f32 sums (under
     # 2 % of the matrix at W = 10240) and none with one split
     for itemsize in (4, 2):
@@ -226,8 +231,110 @@ def test_trust_score_plan_at_smollm_full_size():
     assert "const T* p = u + row * D + col;" in src and \
         "int64_t row, int64_t col" in src
     for name, frag in (("trust_agg.cu", "(int64_t)(r + i) * step"),
-                       ("fused_async_agg.cu", "(int64_t)r * D + d0")):
+                       ("fused_async_agg.cu", "const int64_t row = r + i;"),
+                       ("fused_async_agg.cu", "pc + row * pstep + j"),
+                       ("fused_async_agg.cu", "oc[row * pstep + j]")):
         assert frag in (_build.CSRC / name).read_text(), name
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("D", [1, 127, 2053, 21839, 21840])
+@pytest.mark.parametrize("W", [1, 2, 16, 33, 129, 4096, 10240])
+def test_fused_async_agg_plan_covers_every_row_and_column_once(W, D,
+                                                               itemsize):
+    """K3's launch plan: the splits take every row once, in order, none
+    empty, each of at least MIN_SPLIT_ROWS rows when there are several;
+    the column tiles take every column once, 16-byte pieces only where D
+    allows them."""
+    p = fused_round.plan(W, D, itemsize)
+    assert 1 <= p.splits <= W
+    # the kernel derives the rows from the splits the same way
+    assert p.rows == -(-W // p.splits)
+    spans = [(s * p.rows, min(W, (s + 1) * p.rows)) for s in range(p.splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == W
+    assert all(a < b for a, b in spans)
+    assert all(spans[i][1] == spans[i + 1][0] for i in range(p.splits - 1))
+    if p.splits > 1:
+        assert p.rows >= fused_round.MIN_SPLIT_ROWS
+    assert p.vec == (16 // itemsize if D % (16 // itemsize) == 0 else 1)
+    assert p.threads % 32 == 0 and p.threads <= fused_round.MAX_THREADS
+    tile = p.threads * p.vec                  # columns per block
+    assert (p.tiles - 1) * tile < D <= p.tiles * tile
+    assert fused_round.plan(W, D, itemsize, aligned=False).vec == 1
+
+
+def test_fused_async_agg_plan_at_the_paper_and_llm_shapes():
+    """W = 16, D = 21840 f32 (the async round): one split and more blocks
+    than the card has SMs. The LLM round's flat pack (W = 8, D =
+    134,515,008 bf16): one split, so no partial sums: the HBM traffic is
+    the minimum. W = 4096 and 10240: row splits raise the grid."""
+    p = fused_round.plan(16, 21840, 4)
+    assert p.splits == 1 and p.rows == 16 and p.vec == 4
+    assert p.tiles * p.splits > fused_round.SMS
+    D = 134_515_008
+    llm = fused_round.plan(8, D, 2)
+    assert llm.splits == 1 and llm.vec == 8
+    hbm = fused_round.hbm_bytes(8, D, 2)
+    assert hbm["total"] == hbm["minimum"] == \
+        8 * D * 2 + 2 * 8 * D * 4 + 2 * 8 * 4 + D * 4
+    small = fused_round.hbm_bytes(16, 21840, 4)
+    assert small["total"] == small["minimum"]
+    for W, itemsize in ((4096, 4), (4096, 2), (10240, 4)):
+        big = fused_round.plan(W, 21840, itemsize)
+        assert big.splits > 1 and big.tiles * big.splits >= fused_round.SMS
+
+
+def test_fused_async_agg_block_width_matches_the_kernel():
+    """The plan's widest block is the kernel's: MAX_THREADS is
+    ``kMaxThreads`` in csrc/fused_async_agg.cu."""
+    import re
+    src = (_build.CSRC / "fused_async_agg.cu").read_text()
+    assert re.findall(r"constexpr int kMaxThreads = (\d+);", src) == \
+        [str(fused_round.MAX_THREADS)]
+
+
+def _k3_margins(args, floor):
+    """Each planted fault of K3's plain version against the plain version:
+    its largest distance over the card's tolerance, RTOL of the largest
+    plain value of each output (at least ``floor``); > 1 rejects."""
+    want = ref.fused_async_agg_ref(*args)
+    margins = {}
+    for fault in fused_round.FAULTS:
+        bad = ref.fused_async_agg_ref(*args, fault=fault)
+        margins[fault] = max(
+            float((b - e).abs().max())
+            / (1e-4 * max(floor, float(e.abs().max())))
+            for b, e in zip(bad, want))
+    return margins
+
+
+@pytest.mark.parametrize("W", [16, 4096])
+def test_fused_async_agg_tolerance_rejects_planted_faults(W):
+    """The card's check (1e-4 of the largest plain value of each output, at
+    least 1) fails the plain version with each planted fault, at one row
+    split (W 16) and at several (W 4096); at the LLM round's scale (W 8,
+    updates ~1e-3, the flat-pack round's participation) the check without
+    the floor of 1 does."""
+    _, _, u, pending, weights, keep = _inputs(W, 300, "float32")
+    args = (u, torch.from_numpy(pending), torch.from_numpy(weights),
+            torch.from_numpy(keep))
+    assert (fused_round.plan(W, 300, 4).splits > 1) == (W == 4096)
+    margins = _k3_margins(args, floor=1.0)
+    assert min(margins.values()) > 1, margins
+    # the LLM flat pack's async round: rows 2 and 5 sat out (keep 1, weight
+    # 0), the others' weights sum to 1; updates and pending ~1e-3
+    rng = np.random.default_rng(W)
+    part = np.array([1, 1, 0, 1, 1, 0, 1, 1], np.float32)
+    w = rng.random(8).astype(np.float32) * part
+    llm = (torch.from_numpy(rng.standard_normal((8, 4096)).astype(
+               np.float32) * 1e-3).bfloat16(),
+           torch.from_numpy(rng.standard_normal((8, 4096)).astype(
+               np.float32) * 1e-3),
+           torch.from_numpy(w / w.sum()), torch.from_numpy(1 - part))
+    margins = _k3_margins(llm, floor=0.0)
+    assert min(margins.values()) > 1, margins
+    with pytest.raises(ValueError, match="fault"):
+        ref.fused_async_agg_ref(*args, fault="nope")
 
 
 def test_grad_guard_rejects_exactly_what_it_should():
