@@ -76,6 +76,33 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   kernel; a second same-seed run must emit the same tokens;
                   then one prefill and four decode steps under
                   torch.profiler
+  ssd_bwd_kernel  K4's backward (``ssd_scan_bwd``) against the plain
+                  backward ``ssd_scan_bwd_ref`` and against autograd
+                  through the plain forward, on the states K4's forward
+                  wrote, f32 and bf16: zamba2's training shape (B 4, S
+                  512, H 112, dk = dv = 64, chunk 128) with the model's
+                  and gentle gates, the smoke shape, one chunk, an initial
+                  state with a nonzero dh_final, per-head q and k; each of
+                  ``ssd_scan.BWD_FAULTS`` must fail by a margin > 1; two
+                  launches bitwise equal and one kernel a call; times
+                  beside ``ssd_scan.bwd_bound`` and the plain backward's
+  zamba_grad_parity  zamba2-7b at full width cut to 3 layers: loss and
+                  every leaf's gradient on the card against the CPU from
+                  the same weights, f32 and bf16, batch 1, seq 256, remat
+                  off and on; one K4 forward (two with remat in the
+                  super-layer; the tail is not checkpointed) and one K4
+                  backward a Mamba2 layer
+  zamba_round     zamba2-7b at full width cut to one super-layer (D =
+                  590,849,184) through ``SDFLBProtocol`` as
+                  ``launch/train.py`` builds it (AdamW, remat, no chain):
+                  3 sync rounds at W = 4 (2 clusters, batch 4, seq 512)
+                  and 3 async rounds at the W the async state leaves room
+                  for; the held-out loss (the next 512 positions of the
+                  first round's streams) must fall in each run, K4's
+                  forward and backward launch every round; round walls,
+                  tokens/s, peak memory; a same-seed one-round rerun with
+                  bitwise-equal params and scores; one worker's backward
+                  under deterministic algorithms flags no op
   multi_task      one ``ChainNode`` on the card with two paper-CNN tasks:
                   ``big`` W = 4096 (64 x 64) sync, 8 settlement shards
                   through a ``ShardWorkerPool``, and ``small`` W = 16
@@ -111,10 +138,11 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   smoke config, 5 rounds, per-leaf: no kernel launches)
   f4              fault F4: zamba2 at full width cut to 2 Mamba2 layers
                   and the shared block, ``api.forward`` with params that
-                  require grad raises through K4 (no kernel has a
-                  backward); under ``torch.no_grad()`` it launches K4
-                  twice; K1, K2, K3 and K5 refuse an input that requires
-                  grad, launching nothing
+                  require grad launches K4 twice and a backward through it
+                  the K4 backward kernel twice, every gradient finite;
+                  under ``torch.no_grad()`` K4 twice and no backward; K1,
+                  K2, K3 and K5 (no backward) refuse an input that
+                  requires grad, launching nothing
   llm_parity      smollm-135m's smoke config (2 layers, d 288, V 512,
                   bf16), W = 4 (2 x 2), AdamW, 3 rounds of
                   ``SDFLBProtocol`` on the card and on the CPU, sync and
@@ -152,11 +180,13 @@ Then it prints the run's total wall, the card's ``nvidia-smi`` line, one
 line (each kernel's launches on its paths, its error against the plain
 version, its time, the plain version's time, its bound and the time of a
 library call where one computes the same function: ``torch.mv`` for K2,
-``scaled_dot_product_attention`` for K5; none for K1, K3 and K4), and last
+``scaled_dot_product_attention`` for K5; none for K1, K3, K4 and K4's
+backward, ``ssd_scan_bwd``), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without the last line; so does a machine without CUDA.
 """
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -220,6 +250,16 @@ SSD_CASES = [(SSD_SERVE, "model", False), (SSD_SERVE, "gentle", False),
              (dict(SSD_SERVE, S=128), "gentle", False),
              (dict(SSD_SERVE, S=512), "gentle", True),
              (dict(SSD_SERVE, S=512, per_head_qk=True), "gentle", True)]
+# K4's backward at zamba2-7b's training shape (batch 4, seq 512: 4 chunks),
+# the smoke shape, one chunk, a run from an initial state with a nonzero
+# dh_final, and per-head q and k; the tolerance is ssd_scan.BWD_ATOL_REL
+SSD_TRAIN = dict(B=4, S=512, H=112, dk=64, dv=64, chunk=128)
+SSD_BWD_CASES = [(SSD_TRAIN, "model", False), (SSD_TRAIN, "gentle", False),
+                 (dict(B=4, S=256, H=8, dk=16, dv=64, chunk=64), "gentle",
+                  False),
+                 (dict(SSD_TRAIN, S=128), "gentle", False),
+                 (dict(SSD_TRAIN, B=2), "gentle", True),
+                 (dict(SSD_TRAIN, B=2, per_head_qk=True), "model", True)]
 
 
 def check(ok, what="check failed"):
@@ -525,20 +565,23 @@ def phase_parity():
 
 
 def counters():
+    """Each kernel's launch count: the wrapper and the attribute it counts
+    in (K4's backward counts on ``ssd_scan`` itself)."""
     from repro_torch.kernels import ssd_scan, swa_decode
-    out = {k["name"]: k["wrapper"] for k in kernel_table()}
-    out["swa_decode"] = swa_decode.swa_decode
-    out["ssd_scan"] = ssd_scan.ssd_scan
+    out = {k["name"]: (k["wrapper"], "launches") for k in kernel_table()}
+    out["swa_decode"] = (swa_decode.swa_decode, "launches")
+    out["ssd_scan"] = (ssd_scan.ssd_scan, "launches")
+    out["ssd_scan_bwd"] = (ssd_scan.ssd_scan, "bwd_launches")
     return out
 
 
 def reset_counts():
-    for fn in counters().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def device_profile(prof, wall_s, ours, label, expect=()):
@@ -661,7 +704,7 @@ def main_path(phase, async_mode):
     rec["launches"] = counts
     want = {"trust_score": 3, "trust_agg": 0 if async_mode else 3,
             "fused_async_agg": 3 if async_mode else 0, "swa_decode": 0,
-            "ssd_scan": 0}
+            "ssd_scan": 0, "ssd_scan_bwd": 0}
     if counts != want:
         raise AssertionError(f"{phase}: kernel launches {counts}, "
                              f"expected {want}")
@@ -1266,7 +1309,7 @@ def _trust_launches(sync_rounds, async_rounds):
     """K1 once a round, K2 once a sync round, K3 once an async round."""
     return {"trust_score": sync_rounds + async_rounds,
             "trust_agg": sync_rounds, "fused_async_agg": async_rounds,
-            "swa_decode": 0, "ssd_scan": 0}
+            "swa_decode": 0, "ssd_scan": 0, "ssd_scan_bwd": 0}
 
 
 def _expect(phase, counts, want):
@@ -1695,12 +1738,14 @@ DENSE_PARITY = dict(batch=2, prompt_len=160, gen=4, seed=3)
 
 
 def phase_f4():
-    """Fault F4: a kernel wrapper given a CUDA input that requires grad,
-    under grad mode, raises (no kernel defines a backward). zamba2 at full
-    width cut to 2 Mamba2 layers and the shared block: ``api.forward``
-    with params that require grad raises through K4; the same call under
-    ``torch.no_grad()`` launches K4 once a Mamba2 layer. Then each trust
-    kernel and K5 refuse a small input that requires grad."""
+    """Fault F4, now that K4 has a backward: zamba2 at full width cut to 2
+    Mamba2 layers and the shared block, ``api.forward`` with params that
+    require grad launches K4 once a Mamba2 layer (keeping the states before
+    each chunk), and a backward through it launches the K4 backward kernel
+    once a layer, every leaf's gradient finite; under ``torch.no_grad()``
+    the forward launches K4 twice and no backward. K1, K2, K3 and K5, which
+    have no backward, refuse an input that requires grad, launching
+    nothing."""
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import fused_round, swa_decode, trust_agg, \
         trust_score
@@ -1713,19 +1758,24 @@ def phase_f4():
     tokens = torch.zeros((1, cfg.ssm.chunk_size), dtype=torch.long,
                          device=dev)
     reset_counts()
-    try:
-        api.forward(params, cfg, {"tokens": tokens})
-        raised = None
-    except RuntimeError as e:
-        raised = str(e)
-    check(raised is not None and raised.startswith("ssd_scan:"),
-          f"f4: zamba2 forward under grad gave {raised!r}")
-    check(read_counts()["ssd_scan"] == 0)
+    logits, _ = api.forward(params, cfg, {"tokens": tokens})
+    fwd = read_counts()
+    grads = torch.autograd.grad(logits.float().square().mean(),
+                                list(params.values()))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(fwd["ssd_scan"] == 2 and fwd["ssd_scan_bwd"] == 0
+          and counts["ssd_scan"] == 2 and counts["ssd_scan_bwd"] == 2,
+          f"f4: launches {fwd} then {counts}")
+    check(all(torch.isfinite(g).all() for g in grads), "f4: gradients")
+    del grads, logits
+    reset_counts()
     with torch.no_grad():
         logits, _ = api.forward(params, cfg, {"tokens": tokens})
     torch.cuda.synchronize()
-    counts = read_counts()
-    check(counts["ssd_scan"] == 2 and torch.isfinite(logits).all(), counts)
+    no_grad = read_counts()
+    check(no_grad["ssd_scan"] == 2 and no_grad["ssd_scan_bwd"] == 0
+          and torch.isfinite(logits).all(), no_grad)
     del params, logits
     g = torch.Generator(dev).manual_seed(1)
     u = torch.randn((8, 4096), generator=g, device=dev)
@@ -1750,8 +1800,385 @@ def phase_f4():
         check(refused[name] and fn.launches == before, f"f4: {name}")
     torch.cuda.empty_cache()
     emit({"phase": "f4", "arch": ZAMBA, "layers": cfg.num_layers,
-          "grad_error": raised, "no_grad_k4_launches": counts["ssd_scan"],
+          "grad_k4_launches": counts["ssd_scan"],
+          "grad_k4_bwd_launches": counts["ssd_scan_bwd"],
+          "no_grad_k4_launches": no_grad["ssd_scan"],
+          "no_grad_k4_bwd_launches": no_grad["ssd_scan_bwd"],
           "refused": refused})
+
+
+# -- the zamba2 training slice: K4's backward, gradients, federated rounds ---
+
+# zamba_grad_parity: loss and gradients on the card against the CPU from
+# the same weights (ZPARITY_CUTS at full width), batch 1, seq 256 (two
+# chunks). Absolute on the loss, each leaf's gradient relative to its
+# largest CPU value. f32: cuBLAS and the CPU's GEMMs, K4 and its backward
+# against their plain versions, all sum in other orders; the K4 checks
+# alone allow 1e-4 of max a layer, and the gate leaves' gradients (A_log,
+# dt_bias) sum every position's share: 2e-4 (measured 5.3e-5, tail A_log;
+# loss 9.5e-7). bf16: the card and the CPU round activations to bf16 at
+# other places: the dense decoders' bf16 bounds, loss 2e-3 and gradients
+# 5e-2 of max (measured 2.1e-4 and 1.4e-2, the embedding; NVIDIA H100
+# 80GB HBM3 at 700.00 W, PERF.md section 6).
+ZGRAD = dict(batch=1, seq=256, seed=5)
+ZGRAD_TOL = {"float32": {"loss": 1e-4, "grad": 2e-4},
+             "bfloat16": {"loss": 2e-3, "grad": 5e-2}}
+# zamba_round: zamba2-7b at full width cut to one super-layer (2 Mamba2
+# layers and the shared block), bf16, through SDFLBProtocol as
+# launch/train.py builds it (AdamW lr 3e-4, clip 1.0, remat), no chain: a
+# round would put ~2.4 GB of f32 to IPFS, ~9 min at the ~4.4 MB/s of zlib
+# on one core (PERF.md section 5). 3 sync rounds at W = 4, then 3 async
+# rounds at the W that the async state leaves room for.
+ZROUND_CUTS = {"num_layers": 2, "shared_attn_every": 2}
+ZROUND = dict(workers=4, clusters=2, batch=4, seq=512, rounds=3)
+# The held-out loss that must fall is taken on the next `seq` positions of
+# the first round's streams (each worker's own generator, fresh noise),
+# which no round trains on. A batch of an unrelated seed shares nothing
+# with the training streams but their periods (``synthetic_tokens``): its
+# loss is reported, not held to falling. After 3 sync rounds at full width
+# it rose on one set of training streams (10.6966 -> 10.7155) and fell on
+# another (10.6966 -> 10.6757; NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md
+# section 6).
+ZROUND_FRESH_SEED = 1000
+# device bytes a parameter a worker (params, AdamW m and v, gradients,
+# updates; async adds f32 pending, total and new pending): smollm-135m's
+# federated runs, NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 5)
+ZROUND_BYTES_PER_PARAM = {"sync": 27, "async": 43}
+ZROUND_FREE = 5e9
+
+
+def ssd_bwd_case(K4, name, shape, gates, init, dtype, gen):
+    """K4's backward kernel against the plain backward's f32 result and
+    against ``torch.autograd`` through the plain forward on the same card
+    inputs (``K4.bwd_margins`` <= 1), both reading the states K4's forward
+    wrote.
+    At the training shape: each planted fault must fail by a margin > 1;
+    with the model's gates two launches must give the same bits, 4 calls
+    make 4 kernel launches and nothing else, and the kernel and the plain
+    backward are timed beside the bound."""
+    B, S, H, dk, dv, chunk = (shape[x] for x in ("B", "S", "H", "dk", "dv",
+                                                 "chunk"))
+    dev = torch.device("cuda")
+    q, k, v, a, i, h0 = ssd_inputs(B, S, H, dk, dv, gates, init, dtype, gen,
+                                   shape.get("per_head_qk", False))
+    dy = torch.randn(v.shape, generator=gen, device=dev).to(v.dtype)
+    dh = torch.randn((B, H, dk, dv), generator=gen, device=dev) \
+        if init else None
+    _, _, states = K4._launch_fwd(q, k, v, a, i, h0, chunk, True)
+    K4.ssd_scan.bwd_launches = 0
+    got = K4.ssd_scan_bwd(q, k, v, a, i, dy, dh, chunk=chunk,
+                          initial_state=h0, states=states)
+    torch.cuda.synchronize()
+    check(K4.ssd_scan.bwd_launches == 1, "one backward launch a call")
+    check([g.dtype for g in got] == [v.dtype] * 3 + [torch.float32] * 3)
+    check(all(torch.isfinite(g.float()).all() for g in got))
+    plain = K4.ssd_scan_bwd_ref(q.float(), k.float(), v.float(), a, i, dy, dh,
+                                chunk=chunk, initial_state=h0, states=states)
+    # autograd through the plain forward: q and k as the per-head views the
+    # kernel's dq and dk answer to
+    leaves = [x.detach().float().requires_grad_(True) for x in (q, k, v)] + \
+        [x.detach().clone().requires_grad_(True) for x in (a, i)] + \
+        ([h0.detach().clone().requires_grad_(True)] if init else [])
+    y, h = K4.ssd_scan_ref(*leaves[:5], chunk=chunk,
+                           initial_state=leaves[5] if init else None)
+    auto = torch.autograd.grad(
+        [y, h], leaves, [dy.float(), dh if init else torch.zeros_like(h)])
+    del y, h, leaves
+    margins = {"plain": K4.bwd_margins(got, plain),
+               "autograd": K4.bwd_margins(got, auto)}
+    row = {**shape, "gates": gates, "initial_state": init, "dtype": dtype,
+           "max_abs_err": max(float((g.float() - w).abs().max())
+                              for g, w in zip(got, plain)),
+           "plain_absmax": {n: float(w.abs().max())
+                            for n, w in zip(K4.BWD_NAMES, plain)},
+           "margins": margins}
+    if max(max(m.values()) for m in margins.values()) > 1:
+        raise AssertionError(f"ssd_scan_bwd {row}: beyond the tolerance")
+    del auto
+    train_shape = shape is SSD_TRAIN
+    if train_shape:
+        faults = {}
+        for fault in K4.BWD_FAULTS:
+            fg = K4.ssd_scan_bwd_ref(q.float(), k.float(), v.float(), a, i,
+                                     dy, dh, chunk=chunk, initial_state=h0,
+                                     states=states, fault=fault)
+            faults[fault] = max(K4.bwd_margins(fg, plain).values())
+            check(faults[fault] > 1, f"K4 backward's tolerance passes a "
+                  f"planted fault: {fault} {dtype} {gates}")
+            del fg
+        row["fault_margins"] = faults
+    if train_shape and gates == "model":
+        again = K4.ssd_scan_bwd(q, k, v, a, i, dy, dh, chunk=chunk,
+                                initial_state=h0, states=states)
+        row["bitwise_equal_rerun"] = all(torch.equal(x, y)
+                                         for x, y in zip(got, again))
+        check(row["bitwise_equal_rerun"], "two K4 backward launches differ")
+        del again
+        row["device_kernel"] = one_kernel(
+            lambda: K4.ssd_scan_bwd(q, k, v, a, i, dy, dh, chunk=chunk,
+                                    initial_state=h0, states=states),
+            "ssd_chunk_scan_bwd")
+        bw, f32_peak = peaks(name)
+        row.update(K4.bwd_bound(B, S, H, dk, dv, chunk, v.element_size(), bw,
+                                tensor_peak(name), f32_peak))
+        row.update({
+            "ms": time_ms(lambda: K4.ssd_scan_bwd(
+                q, k, v, a, i, dy, dh, chunk=chunk, initial_state=h0,
+                states=states)),
+            "plain_ms": time_ms(lambda: K4.ssd_scan_bwd_ref(
+                q, k, v, a, i, dy, dh, chunk=chunk, initial_state=h0,
+                states=states)),
+            "library_ms": None,
+            "min_bytes": K4.bwd_hbm_bytes(B, S, H, dk, dv, chunk,
+                                          v.element_size())["minimum"],
+            "flops": K4.bwd_flops(B, S, H, dk, dv, chunk)})
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_f32_core_bound"] = row["f32_core_bound_ms"] / row["ms"]
+    del q, k, v, a, i, h0, dy, dh, states, got, plain
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_ssd_bwd_kernel(name):
+    """K4's backward kernel against ssd_scan_bwd_ref and autograd on the
+    card; returns the row at the training shape (bf16, the model's gates)
+    for the kernels line."""
+    from repro_torch.kernels import ssd_scan as K4
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = [ssd_bwd_case(K4, name, shape, gates, init, dtype, gen)
+             for dtype in ("float32", "bfloat16")
+             for shape, gates, init in SSD_BWD_CASES]
+    emit({"phase": "ssd_bwd_kernel", "atol_rel": K4.BWD_ATOL_REL,
+          "rtol_bf16": K4.RTOL[torch.bfloat16],
+          "tolerance": "|kernel - plain_f32| <= atol_rel * max|plain_f32| "
+                       "+ rtol * |plain_f32| for each of dq, dk, dv, da, "
+                       "di, dh0; rtol 0 in f32 and for da, di, dh0",
+          "cases": cases})
+    return next(c for c in cases if c["dtype"] == "bfloat16"
+                and "ms" in c)
+
+
+def _lm_grads(cfg, params, batch, remat):
+    """One model's loss and every leaf's gradient (float32, on the CPU)."""
+    from repro_torch.models import api
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss, _ = api.lm_loss_fn(cfg, remat=remat, kv_chunk=512)(p, batch)
+    g = torch.autograd.grad(loss, list(p.values()))
+    return float(loss), {k: x.float().cpu() for k, x in zip(p, g)}
+
+
+def phase_zamba_grad_parity():
+    """zamba2-7b's loss and gradients on the card against the CPU, at full
+    width cut to ZPARITY_CUTS, from the same weights, in f32 and bf16, with
+    remat off and on: the loss and each leaf's gradient within ZGRAD_TOL;
+    one K4 forward (two with remat in the super-layer, which backward
+    recomputes; the tail layer is not checkpointed) and one K4 backward a
+    Mamba2 layer a call, and no other kernel."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api, hybrid
+    dev = torch.device("cuda")
+    out = {"phase": "zamba_grad_parity", "arch": ZAMBA, "cuts": ZPARITY_CUTS,
+           **ZGRAD, "tol": ZGRAD_TOL}
+    for dtype in ("float32", "bfloat16"):
+        cfg = get_config(ZAMBA).replace(dtype=dtype, **ZPARITY_CUTS)
+        params = api.init(cfg, torch.Generator().manual_seed(3),
+                          torch.device("cpu"))
+        data = synthetic_tokens(1, ZGRAD["batch"], ZGRAD["seq"],
+                                cfg.vocab_size, seed=ZGRAD["seed"])
+        batch = {k: torch.from_numpy(v[0]) for k, v in data.items()}
+        t0 = time.monotonic()
+        cpu_loss, cpu_g = _lm_grads(cfg, params, batch, False)
+        cpu_s = time.monotonic() - t0
+        card_params = {k: v.to(dev) for k, v in params.items()}
+        card_batch = {k: v.to(dev) for k, v in batch.items()}
+        rec = {"cpu_s": cpu_s, "cpu_loss": cpu_loss}
+        for remat in (False, True):
+            reset_counts()
+            loss, g = _lm_grads(cfg, card_params, card_batch, remat)
+            counts = read_counts()
+            # remat recomputes the super-layers; the tail layer is not
+            # checkpointed, as in the reference
+            k, n_super, n_tail = hybrid._split_layers(cfg)
+            want = {name: 0 for name in counts}
+            want["ssd_scan"] = k * n_super * (2 if remat else 1) + n_tail
+            want["ssd_scan_bwd"] = cfg.num_layers
+            _expect(f"zamba_grad_parity {dtype} remat={remat}", counts, want)
+            rel = {k: float((g[k] - cpu_g[k]).abs().max()
+                            / cpu_g[k].abs().max().clamp_min(1e-30))
+                   for k in g}
+            worst = max(rel, key=rel.get)
+            r = {"loss": loss, "loss_err": abs(loss - cpu_loss),
+                 "worst_leaf": worst, "worst_rel_err": rel[worst],
+                 "gate_leaves_rel_err": {k: v for k, v in rel.items()
+                                         if "A_log" in k or "dt_bias" in k},
+                 "launches": counts}
+            rec["remat" if remat else "plain"] = r
+            tol = ZGRAD_TOL[dtype]
+            check(r["loss_err"] <= tol["loss"] and rel[worst] <= tol["grad"]
+                  and np.isfinite(loss), f"zamba_grad_parity {dtype}: {r}")
+            del g
+        out[dtype] = rec
+        del params, card_params, cpu_g
+        torch.cuda.empty_cache()
+    emit(out)
+
+
+def _release():
+    """Free what finished protocols hold: a node and its tasks refer to each
+    other, so their device memory waits for the cycle collector."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _zamba_round_run(cfg, fresh, workers, async_mode, rounds, seed=0):
+    """``rounds`` rounds of SDFLBProtocol over ``cfg`` on the card, built as
+    launch/train.py builds it (no chain): each round's wall, tokens/s, K4's
+    forward and backward launches, scores; the peak memory; before (the
+    same seeded init) and after, the held-out loss on the continuation of
+    the first round's streams (``ZROUND``), which must fall, and the loss
+    on ``fresh``, a batch of an unrelated seed."""
+    from repro_torch.configs.base import FederationConfig, TrainConfig
+    from repro_torch.core import async_sim
+    from repro_torch.core.protocol import SDFLBProtocol
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    fed = FederationConfig(num_clusters=ZROUND["clusters"],
+                           workers_per_cluster=workers // ZROUND["clusters"],
+                           async_mode=async_mode, trust_threshold=0.3,
+                           mode="allreduce")
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, remat=True, grad_clip=1.0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    proto = SDFLBProtocol(cfg, fed, tc, use_blockchain=False, seed=seed,
+                          device=dev)
+    B, S = ZROUND["batch"], ZROUND["seq"]
+    # each round's streams at twice the length: the first half trains, the
+    # second half of the first round's is the held-out set
+    streams = [synthetic_tokens(workers, B, 2 * S, cfg.vocab_size,
+                                seed=seed + r) for r in range(rounds)]
+    heldout = {k: v[..., S:].reshape(workers * B, S)
+               for k, v in streams[0].items()}
+    before = (_heldout_loss(cfg, proto.global_params, heldout, dev),
+              _heldout_loss(cfg, proto.global_params, fresh, dev))
+    torch.cuda.empty_cache()
+    scheduler = async_sim.AsyncScheduler(
+        async_sim.heterogeneous_profiles(workers, seed=seed), seed=seed,
+        buffer_size=max(2, workers // 2)) if async_mode else None
+    tokens = workers * ZROUND["batch"] * ZROUND["seq"]
+    rec = {"workers": workers, "round_wall_s": [], "tokens_per_s": [],
+           "k4_launches": [], "k4_bwd_launches": [], "mean_loss": [],
+           "mean_score": [], "participation": []}
+    first = None
+    for r in range(rounds):
+        part = scheduler.next_aggregation()[1] if scheduler else None
+        data = {k: np.ascontiguousarray(v[..., :S])
+                for k, v in streams[r].items()}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = proto.run_round(data, participation=part)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts = read_counts()
+        check(counts["ssd_scan"] >= 1 and counts["ssd_scan_bwd"] >= 1
+              and all(counts[k] == 0 for k in counts
+                      if k not in ("ssd_scan", "ssd_scan_bwd")),
+              f"zamba_round: launches {counts}")
+        check(np.isfinite(out.scores).all() and np.isfinite(out.losses).all())
+        rec["round_wall_s"].append(wall)
+        rec["tokens_per_s"].append(tokens / wall)
+        rec["k4_launches"].append(counts["ssd_scan"])
+        rec["k4_bwd_launches"].append(counts["ssd_scan_bwd"])
+        rec["mean_loss"].append(float(np.mean(out.losses)))
+        rec["mean_score"].append(float(np.mean(out.scores)))
+        rec["participation"].append(None if part is None else
+                                    [int(x) for x in part])
+        if r == 0:
+            first = ({k: v.cpu() for k, v in proto.global_params.items()},
+                     np.array(out.scores))
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    after = (_heldout_loss(cfg, proto.global_params, heldout, dev),
+             _heldout_loss(cfg, proto.global_params, fresh, dev))
+    rec["heldout_loss"] = [before[0], after[0]]
+    rec["fresh_seed_loss"] = [before[1], after[1]]
+    check(all(torch.isfinite(v).all() for v in proto.global_params.values()))
+    check(after[0] < before[0], f"zamba_round: held-out loss {before[0]} "
+          f"-> {after[0]}")
+    proto.finalize()
+    return proto, rec, first
+
+
+def phase_zamba_round(name):
+    """zamba2-7b at full width (one super-layer) federated on the card:
+    3 sync rounds at W = 4 and 3 async rounds, each run with a falling
+    held-out loss (``_zamba_round_run``) and K4's forward and backward on
+    every round; a same-seed
+    one-round rerun with bitwise-equal global params and scores; one
+    worker's backward under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` flags no op. Returns the launches of the rounds."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    cfg = get_config(ZAMBA).replace(**ZROUND_CUTS)
+    fresh = {k: v[0] for k, v in synthetic_tokens(
+        1, ZROUND["batch"], ZROUND["seq"], cfg.vocab_size,
+        seed=ZROUND_FRESH_SEED).items()}
+    _release()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    out = {"phase": "zamba_round", "arch": ZAMBA, "cuts": ZROUND_CUTS,
+           **ZROUND, "dtype": cfg.dtype, "chain": False,
+           "d_model": cfg.d_model, "ssd_heads": cfg.d_model * cfg.ssm.expand
+           // 64, "memory_held_at_start": held, "device_free_at_start": free}
+    reset_counts()
+    W = ZROUND["workers"]
+    proto, out["sync"], (p1, s1) = _zamba_round_run(cfg, fresh, W, False,
+                                                    ZROUND["rounds"])
+    D = api.param_count(proto.global_params)
+    out["D"] = D
+    out["sync"]["bytes_per_param_per_worker"] = \
+        (out["sync"]["max_memory_allocated"] - held) / (D * W)
+    step = _worker_step(cfg, proto.global_params, {
+        k: torch.from_numpy(v).to(dev) for k, v in fresh.items()})
+    del proto
+    flagged, cublas = _deterministic_probe(step)
+    out["nondeterministic_ops_flagged"] = flagged
+    out["cublas_notes"] = cublas
+    check(not flagged, f"zamba_round: nondeterministic ops {flagged}")
+    del step
+    _release()
+    # a same-seed rerun of the first round
+    again, rerun, (p2, s2) = _zamba_round_run(cfg, fresh, W, False, 1)
+    identical = all(torch.equal(p1[k], p2[k]) for k in p1) and \
+        np.array_equal(s1, s2)
+    check(identical, "zamba_round: same-seed rounds differ")
+    out["rerun"] = {"identical_params_and_scores": identical,
+                    "round_wall_s": rerun["round_wall_s"]}
+    del again, p1, p2
+    _release()
+    # async: the largest W of 4 and 2 whose state leaves ZROUND_FREE free
+    free, _ = torch.cuda.mem_get_info()
+    need = {w: ZROUND_BYTES_PER_PARAM["async"] * D * w for w in (4, 2)}
+    Wa = next((w for w in (4, 2) if need[w] <= free - ZROUND_FREE), 2)
+    out["async_reckoning"] = {"bytes_needed": need, "device_free": free,
+                              "workers": Wa}
+    proto, out["async"], _ = _zamba_round_run(cfg, fresh, Wa, True,
+                                              ZROUND["rounds"])
+    out["async"]["bytes_per_param_per_worker"] = \
+        (out["async"]["max_memory_allocated"] - held) / (D * Wa)
+    del proto
+    _release()
+    launches = {k: 0 for k in counters()}
+    launches["ssd_scan"] = sum(out["sync"]["k4_launches"]) + \
+        sum(out["async"]["k4_launches"])
+    launches["ssd_scan_bwd"] = sum(out["sync"]["k4_bwd_launches"]) + \
+        sum(out["async"]["k4_bwd_launches"])
+    out["launches"] = launches
+    emit(out)
+    return launches
 
 
 def _settle_decisions(fed, rounds_scores, W):
@@ -2320,6 +2747,9 @@ def main():
     ssd_row = phase_ssd_kernel(name)
     phase_zamba_parity()
     zamba_counts = phase_zamba_serve(name)
+    ssd_bwd_row = phase_ssd_bwd_kernel(name)
+    phase_zamba_grad_parity()
+    round_counts = phase_zamba_round(name)
     new_paths = [phase_multi_task(), phase_multi_task_parity()]
     events_counts, events_task = phase_events()
     new_paths += [events_counts, phase_read_path(events_task)]
@@ -2363,16 +2793,33 @@ def main():
     if zamba_counts["ssd_scan"] < 1:
         raise AssertionError("ssd_scan never launched on the zamba2 serve "
                              "path")
+    if round_counts["ssd_scan_bwd"] < 1:
+        raise AssertionError("ssd_scan_bwd never launched on the zamba2 "
+                             "round path")
     summary.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:29",
-        "launches": zamba_counts["ssd_scan"],
+        "launches": zamba_counts["ssd_scan"] + round_counts["ssd_scan"],
         "max_abs_err": ssd_row["max_abs_err"], "ms": ssd_row["ms"],
         "plain_ms": ssd_row["plain_ms"], "bound_ms": ssd_row["bound_ms"],
         "bound_by": ssd_row["bound_by"], "library_ms": ssd_row["library_ms"],
         "shape": {k: ssd_row[k] for k in ("B", "S", "H", "dk", "dv", "chunk",
                                            "gates", "dtype")}})
+    # K4's backward: no TPU kernel; the reference takes the VJP of its jnp
+    # scan under autodiff
+    summary.append({
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:45",
+        "launches": round_counts["ssd_scan_bwd"],
+        "max_abs_err": ssd_bwd_row["max_abs_err"], "ms": ssd_bwd_row["ms"],
+        "plain_ms": ssd_bwd_row["plain_ms"],
+        "bound_ms": ssd_bwd_row["bound_ms"],
+        "bound_by": ssd_bwd_row["bound_by"],
+        "library_ms": ssd_bwd_row["library_ms"],
+        "shape": {k: ssd_bwd_row[k] for k in ("B", "S", "H", "dk", "dv",
+                                               "chunk", "gates", "dtype")}})
     emit({"phase": "total", "wall_s": time.monotonic() - t_start})
     print(smi_line, flush=True)
     emit({"kernels": summary})

@@ -33,16 +33,16 @@ class TrustStats(NamedTuple):
 
 def update_stats(updates: Dict[str, torch.Tensor], loss_before,
                  loss_after) -> TrustStats:
-    """updates: dict with leading worker dim W on every leaf."""
-    leaves = [x.float() for _, x in sorted(updates.items())]
-
-    def red(x):
-        return tuple(range(1, x.ndim))
-
-    dot = sum((x * x.mean(dim=0, keepdim=True)).sum(dim=red(x))
-              for x in leaves)
-    sq_u = sum(x.square().sum(dim=red(x)) for x in leaves)
-    sq_c = sum(x.mean(dim=0).square().sum() for x in leaves)
+    """updates: dict with leading worker dim W on every leaf. The leaves
+    are summed in key order, one f32 copy at a time, so the f32 copies of
+    a large model's (W, D) updates are never all held at once."""
+    dot = sq_u = sq_c = 0
+    for _, x in sorted(updates.items()):
+        x = x.float()
+        red = tuple(range(1, x.ndim))
+        dot = dot + (x * x.mean(dim=0, keepdim=True)).sum(dim=red)
+        sq_u = sq_u + x.square().sum(dim=red)
+        sq_c = sq_c + x.mean(dim=0).square().sum()
     return TrustStats(dot, sq_u, sq_c, loss_before - loss_after)
 
 

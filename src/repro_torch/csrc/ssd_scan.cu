@@ -8,7 +8,9 @@
 //        + exp(cum_t) q_t . h                                     (inter)
 //   h'   = exp(cum_{Q-1}) h + sum_s exp(cum_{Q-1} - cum_s) i_s k_s (x) v_s
 // y in the inputs' dtype, the final state (and the optional initial state)
-// (B, H, dk, dv) in f32.
+// (B, H, dk, dv) in f32. Under grad the caller also asks for the state
+// before each chunk, (B, S / Q, H, dk, dv) f32, which the backward
+// (ssd_scan_bwd.cu) reads instead of recomputing it.
 //
 // Bound on the H100: bytes. At zamba2-7b's prefill (B 4, S 4096, H 112,
 // dk = dv = 64, Q 128) the function needs 60.4 GFLOP against 0.50 GB of
@@ -141,7 +143,8 @@ ssd_chunk_scan(const T* __restrict__ q, const T* __restrict__ k,
                int S, int H, int dk, int dv, int Q, int64_t qsb,
                int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
                int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
-               T* __restrict__ y, float* __restrict__ h_out) {
+               T* __restrict__ y, float* __restrict__ h_out,
+               float* __restrict__ states) {
   constexpr int RR = RT / 8;          // tile rows per thread
   constexpr int RP = RT + 4;          // row stride of the tile arrays
   constexpr int CW = VD / 8;          // output columns per warp
@@ -192,6 +195,14 @@ ssd_chunk_scan(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int s0 = 0; s0 < S; s0 += Q) {
     __syncthreads();              // the previous chunk is done with smem
+    if (states) {                 // the state before this chunk, for the
+      float* st = states +        // backward
+                  ((int64_t)(b * (S / Q) + s0 / Q) * H + h) * dk * dv;
+      for (int x = t; x < dk * dv; x += kSsdThreads) {
+        const int d = x / dv, e = x - d * dv;
+        st[x] = h_s[d * vp + e];
+      }
+    }
     for (int x = t; x < Q * dk; x += kSsdThreads) {
       const int s = x / dk, d = x - s * dk;
       kT_s[d * qp + s] = rt::to_f32(kb[(int64_t)(s0 + s) * kss + d]);
@@ -369,7 +380,8 @@ cudaError_t launch_tile(const T* q, const T* k, const T* v, const float* a,
                         int H, int dk, int dv, int Q, int64_t qsb,
                         int64_t qss, int64_t qsh, int64_t ksb, int64_t kss,
                         int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
-                        T* y, float* h_out, cudaStream_t stream) {
+                        T* y, float* h_out, float* states,
+                        cudaStream_t stream) {
   const int64_t smem = sizeof(float) * smem_floats(Q, dk, dv, VD, RT);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -380,7 +392,7 @@ cudaError_t launch_tile(const T* q, const T* k, const T* v, const float* a,
   }
   ssd_chunk_scan<T, KD, VD, RT><<<B * H, kSsdThreads, smem, stream>>>(
       q, k, v, a, gi, h0, S, H, dk, dv, Q, qsb, qss, qsh, ksb, kss, ksh, vsb,
-      vss, vsh, y, h_out);
+      vss, vsh, y, h_out, states);
   return cudaGetLastError();
 }
 
@@ -552,7 +564,8 @@ ssd_chunk_scan_mma(const T* __restrict__ q, const T* __restrict__ k,
                    int vec, int tma, const __grid_constant__ CUtensorMap tmq,
                    const __grid_constant__ CUtensorMap tmk,
                    const __grid_constant__ CUtensorMap tmv,
-                   T* __restrict__ y, float* __restrict__ h_out) {
+                   T* __restrict__ y, float* __restrict__ h_out,
+                   float* __restrict__ states) {
   using Sh = Tc<T, KD, VD, kLean, kW>;
   constexpr int kThreads = 32 * kW;
   constexpr int NQ = Sh::NQ, NP = Sh::NP;
@@ -713,6 +726,21 @@ ssd_chunk_scan_mma(const T* __restrict__ q, const T* __restrict__ k,
         }
   };
 
+  // the state before chunk n, for the backward (states may be null)
+  auto write_states = [&](int n) {
+    float* st = states + ((int64_t)(b * nc + n) * H + h) * dk * dv;
+#pragma unroll
+    for (int m = 0; m < kMtw; ++m)
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 16 * (mt0 + m) + g + 8 * (e >> 1);
+          const int col = 16 * pair + 8 * nn + 2 * qd + (e & 1);
+          if (d < dk && col < dv) st[(int64_t)d * dv + col] = hs[m][nn][e];
+        }
+  };
+
   if (use_tma) {
     // the boxes write rows < Q only: rows Q .. QP - 1 stay zero
     for (int64_t x = t; x < Sh::kStages * sp; x += kThreads)
@@ -726,6 +754,7 @@ ssd_chunk_scan_mma(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
   }
   write_hparts(0);
+  if (states) write_states(0);
   stage(0, 0);
   rt::cp_async_commit();
   if (w == 0) {
@@ -1002,6 +1031,7 @@ ssd_chunk_scan_mma(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
     if (n + 1 < nc) write_hparts(kLean ? 0 : hb ^ 1);
+    if (states && n + 1 < nc) write_states(n + 1);
     if constexpr (kLean) {
       __syncthreads();        // every warp is done with the stage's rows
       if (n + 1 < nc) stage(n + 1, 0);
@@ -1058,7 +1088,7 @@ cudaError_t launch_mma(const T* q, const T* k, const T* v, const float* a,
                        int dk, int dv, int Q, int64_t qsb, int64_t qss,
                        int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
                        int64_t vsb, int64_t vss, int64_t vsh, T* y,
-                       float* h_out, cudaStream_t stream) {
+                       float* h_out, float* states, cudaStream_t stream) {
   using Sh = Tc<T, KD, VD, kLean, kW>;
   static_assert(Sh::kMtw >= 1, "state tiles");
   constexpr int64_t kMaxBytes = Sh::bytes(kMaxQ);
@@ -1092,7 +1122,7 @@ cudaError_t launch_mma(const T* q, const T* k, const T* v, const float* a,
   ssd_chunk_scan_mma<T, KD, VD, kLean, kW, kMinBlocks>
       <<<B * H, 32 * kW, Sh::bytes(round_up(Q, 16)), stream>>>(
           q, k, v, a, gi, h0, S, H, dk, dv, Q, qsb, qss, qsh, ksb, kss, ksh,
-          vsb, vss, vsh, vec, tma, tmq, tmk, tmv, y, h_out);
+          vsb, vss, vsh, vec, tma, tmq, tmk, tmv, y, h_out, states);
   return cudaGetLastError();
 }
 
@@ -1103,7 +1133,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int bf16, int B, int S, int H, int dk, int dv, int Q,
                    int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
                    int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
-                   int64_t vsh, void* y, float* h_out, cudaStream_t stream) {
+                   int64_t vsh, void* y, float* h_out, float* states,
+                   cudaStream_t stream) {
   if (B < 1 || S < 1 || H < 1 || Q < 1 || Q > kMaxQ || S % Q != 0 ||
       dk < 1 || dk > kMaxD || dv < 1 || dv > kMaxD ||
       (int64_t)B * H > 0x7fffffff)
@@ -1112,7 +1143,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 #define REPRO_SSD_ARGS(T)                                                    \
   static_cast<const T*>(q), static_cast<const T*>(k),                        \
       static_cast<const T*>(v), a, gi, h0, B, S, H, dk, dv, Q, qsb, qss, qsh, \
-      ksb, kss, ksh, vsb, vss, vsh, static_cast<T*>(y), h_out, stream
+      ksb, kss, ksh, vsb, vss, vsh, static_cast<T*>(y), h_out, states,      \
+      stream
   using bf = __nv_bfloat16;
   cudaError_t err;
   if (bf16 && narrow)
@@ -1133,8 +1165,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // 1) each (a head stride may be 0); dtype f32 (bf16 == 0) or bf16
 // (bf16 == 1) for all three and for y (B, S, H, dv) contiguous. a, i:
 // (B, S, H) f32 contiguous. h0: (B, H, dk, dv) f32 contiguous, or null for
-// a zero initial state; h_out: (B, H, dk, dv) f32, the final state.
-// S % chunk == 0, chunk <= 128, dk, dv <= 128. Returns a cudaError_t.
+// a zero initial state; h_out: (B, H, dk, dv) f32, the final state;
+// states: (B, S / chunk, H, dk, dv) f32, the state before each chunk (what
+// the backward, ssd_scan_bwd.cu, reads), or null when no gradient is
+// wanted. S % chunk == 0, chunk <= 128, dk, dv <= 128. Returns a
+// cudaError_t.
 extern "C" int repro_ssd_scan(const void* q, const void* k, const void* v,
                               const float* a, const float* i,
                               const float* h0, int bf16, int B, int S, int H,
@@ -1142,8 +1177,8 @@ extern "C" int repro_ssd_scan(const void* q, const void* k, const void* v,
                               long long qss, long long qsh, long long ksb,
                               long long kss, long long ksh, long long vsb,
                               long long vss, long long vsh, void* y,
-                              float* h_out, void* stream) {
+                              float* h_out, float* states, void* stream) {
   return launch(q, k, v, a, i, h0, bf16, B, S, H, dk, dv, chunk, qsb, qss,
-                qsh, ksb, kss, ksh, vsb, vss, vsh, y, h_out,
+                qsh, ksb, kss, ksh, vsb, vss, vsh, y, h_out, states,
                 static_cast<cudaStream_t>(stream));
 }

@@ -40,7 +40,8 @@ _SIGNATURES = {
     "repro_fused_async_agg": [_P, _I, _P, _P, _P] + [_I] * 5 + [_P] * 5,
     "repro_swa_decode": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,
                          _I, _I, _I, _P, _P, _P, _P],
-    "repro_ssd_scan": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P, _P, _P],
+    "repro_ssd_scan": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P] * 4,
+    "repro_ssd_scan_bwd": [_P] * 8 + [_I] * 7 + [_L] * 9 + [_P] * 7,
 }
 
 _lock = threading.Lock()
@@ -186,11 +187,13 @@ def check_updates(updates: torch.Tensor) -> None:
 
 
 def check_no_grad(kernel: str, *tensors: Optional[torch.Tensor]) -> None:
-    """No kernel defines a backward: its outputs come from ``torch.empty``
-    and carry no graph. On the card, refuse a call that autograd would
-    differentiate through (grad mode on and an input that requires grad),
-    whose gradient would otherwise be lost without a word (fault F4). The
-    plain versions on the CPU are differentiable and need no such check."""
+    """For the kernels without a backward (K1-K3 and K5; K4 has one, in
+    ``ssd_scan``'s ``autograd.Function``): their outputs come from
+    ``torch.empty`` and carry no graph. On the card, refuse a call that
+    autograd would differentiate through (grad mode on and an input that
+    requires grad), whose gradient would otherwise be lost without a word
+    (fault F4). The plain versions on the CPU are differentiable and need
+    no such check."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

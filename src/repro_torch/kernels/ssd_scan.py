@@ -22,6 +22,16 @@ parts=n)`` rounds those operands the same way, so the CPU can show what the
 split costs against the card tolerance below; the planted fault
 ``p_one_part`` is the gated scores with one part only. ``bound`` gives the
 least time the card could take for a call.
+
+The backward: when autograd records, ``ssd_scan`` goes through
+``_SSDScan``, whose forward also keeps the state before each chunk (the
+kernel writes them to an optional (B, nc, H, dk, dv) f32 output) and whose
+backward is ``ssd_scan_bwd``: the backward kernel
+(``csrc/ssd_scan_bwd.cu``, f32 products, one block per (batch, head)
+walking the chunks in reverse) on the card, the plain backward
+``ssd_scan_bwd_ref`` (the VJP by chunks, in f32) on the CPU. The reference
+has no kernel here: it trains through XLA's autodiff of the jnp scan.
+``bwd_bound`` gives the backward's least time.
 """
 from __future__ import annotations
 
@@ -59,6 +69,27 @@ FAULTS = ("carry_reset",            # the state is dropped at every chunk
           "final_state_stale",      # final state misses the last chunk
           "p_one_part")             # gated scores rounded once to bf16
 
+# The backward kernel against the plain backward's f32 result on the same
+# inputs, each of dq, dk, dv, da, di and dh0 relative to its own largest
+# plain value (``bwd_margins``):
+#   |kernel - plain_f32| <= BWD_ATOL_REL * max|plain_f32| + RTOL * |plain_f32|,
+# RTOL for bf16 dq, dk, dv only, which the kernel rounds once more. Both are
+# f32 throughout and differ in the order of their sums; as in the forward,
+# the largest gap comes from the chunk's cumsum of the gates, at zamba2's
+# gates up to ~900 in size. On the CPU the plain backward in f32 stays
+# within 1.7e-5 of max (da; dv 1.2e-5, dq and dk 7.7e-6) of the same
+# formulas in f64 at zamba2's training shape and gates, and within 6e-7
+# at gentle ones; a kernel that sums in other orders may sit on the other
+# side, so the bound allows three times twice that. Each planted fault
+# (``BWD_FAULTS``) moves some output by >= 0.1 of its max where it applies.
+BWD_ATOL_REL = 1e-4
+
+# errors the plain backward can plant (``ssd_scan_bwd_ref(fault=...)``)
+BWD_FAULTS = ("bwd_carry_dropped",        # dH reset at every chunk
+              "bwd_da_forward_cumsum",    # da as a forward cumsum of dcum
+              "bwd_di_no_state_term",     # di misses e^{tot-cum_s} kᵀ dH v
+              "bwd_dq_no_inter")          # dq misses e^{cum_t} H_n dy_t
+
 
 def bf16_parts(x: torch.Tensor, n: int) -> torch.Tensor:
     """The f32 value of x split into n bf16 parts, part j rounding what
@@ -87,14 +118,17 @@ def segsum(a: torch.Tensor) -> torch.Tensor:
 def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  a: torch.Tensor, i: torch.Tensor, *, chunk: int,
                  initial_state: Optional[torch.Tensor] = None,
-                 fault: Optional[str] = None, parts: Optional[int] = None):
+                 fault: Optional[str] = None, parts: Optional[int] = None,
+                 return_states: bool = False):
     """Plain PyTorch version, the reference's chunked algorithm
     (``ssm.chunked_decay_attention``) in f32 → (y in v's dtype, final state
-    f32). ``fault`` (one of ``FAULTS``) plants that error. ``parts``
-    rounds the three operands that the kernel splits into bf16 parts —
-    the gated scores, the carried state in q·h and w·v in the state
-    update — to that many parts (``bf16_parts``), so the CPU can show
-    what the split costs against the card tolerance."""
+    f32), and with ``return_states`` the f32 state before each chunk
+    (B, nc, H, dk, dv), what the backward reads. ``fault`` (one of
+    ``FAULTS``) plants that error. ``parts`` rounds the three operands
+    that the kernel splits into bf16 parts — the gated scores, the carried
+    state in q·h and w·v in the state update — to that many parts
+    (``bf16_parts``), so the CPU can show what the split costs against the
+    card tolerance."""
     if fault is not None and fault not in FAULTS:
         raise ValueError(f"unknown fault {fault!r}; known: {FAULTS}")
     B, S, H, dk = q.shape
@@ -141,7 +175,7 @@ def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             h = torch.zeros_like(h)
         h_before.append(h)
         h = h * chunk_decay[:, n, :, None, None] + state_n[:, n]
-    h_before = torch.stack(h_before, dim=1)                 # (B,nc,H,dk,dv)
+    states = h_before = torch.stack(h_before, dim=1)        # (B,nc,H,dk,dv)
 
     if parts is not None:
         h_before = bf16_parts(h_before, parts)
@@ -150,6 +184,8 @@ def ssd_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y = (y_intra + y_inter).reshape(B, S, H, dv)
     if fault == "final_state_stale":
         h = h_before[:, -1]
+    if return_states:
+        return y.to(v.dtype), h, states
     return y.to(v.dtype), h
 
 
@@ -159,6 +195,24 @@ def excess(got: torch.Tensor, want32: torch.Tensor,
     around the plain f32 result ``want32`` (above): > 0 fails."""
     tol = ATOL_REL * want32.abs().max() + rtol * want32.abs()
     return float(((got.float() - want32).abs() - tol).max())
+
+
+BWD_NAMES = ("dq", "dk", "dv", "da", "di", "dh0")
+
+
+def bwd_margins(got, want32) -> dict:
+    """For each output of the backward (``BWD_NAMES``), how many times over
+    the card tolerance around the plain f32 result ``want32`` (above)
+    ``got`` lies at its worst element: max |got - plain| / tolerance. Any
+    value > 1 fails; a planted fault must push one above 1. dq, dk and dv
+    in bf16 take RTOL."""
+    out = {}
+    for name, g, w in zip(BWD_NAMES, got, want32):
+        w = w.float()
+        tol = BWD_ATOL_REL * w.abs().max() + RTOL.get(g.dtype, 0.0) * w.abs()
+        out[name] = float(((g.float() - w).abs()
+                           / tol.clamp_min(1e-30)).max())
+    return out
 
 
 def _check(q, k, v, a, i, chunk, initial_state):
@@ -199,6 +253,60 @@ def _check_card(q, k, v, chunk):
         raise ValueError("q, k, v need contiguous rows (last stride 1)")
 
 
+def _launch_fwd(q, k, v, a, i, h0, chunk: int, with_states: bool):
+    """One K4 launch → (y, final state, and the state before each chunk
+    (B, nc, H, dk, dv) f32 when ``with_states``, else None)."""
+    _check_card(q, k, v, chunk)
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    dev = q.device
+    a32 = a.detach().to(torch.float32).contiguous()
+    i32 = i.detach().to(torch.float32).contiguous()
+    h0 = None if h0 is None else h0.detach().to(torch.float32).contiguous()
+    y = torch.empty((B, S, H, dv), dtype=v.dtype, device=dev)
+    h = torch.empty((B, H, dk, dv), dtype=torch.float32, device=dev)
+    states = torch.empty((B, S // chunk, H, dk, dv), dtype=torch.float32,
+                         device=dev) if with_states else None
+    _build.launch("repro_ssd_scan", dev, _build.ptr(q), _build.ptr(k),
+                  _build.ptr(v), _build.ptr(a32), _build.ptr(i32),
+                  _build.ptr(h0), int(v.dtype == torch.bfloat16), B, S, H,
+                  dk, dv, chunk, *q.stride()[:3], *k.stride()[:3],
+                  *v.stride()[:3], _build.ptr(y), _build.ptr(h),
+                  _build.ptr(states))
+    ssd_scan.launches += 1
+    return y, h, states
+
+
+class _SSDScan(torch.autograd.Function):
+    """K4 under autograd: the forward keeps the state before each chunk,
+    the backward is ``ssd_scan_bwd`` (the kernel on the card, the plain
+    backward on the CPU). q and k may be head-stride-0 views: their
+    gradients come back per head, and autograd's expand backward sums
+    them over the heads."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, a, i, h0, chunk):
+        if q.device.type == "cpu":
+            y, h, states = ssd_scan_ref(q, k, v, a, i, chunk=chunk,
+                                        initial_state=h0,
+                                        return_states=True)
+        else:
+            y, h, states = _launch_fwd(q, k, v, a, i, h0, chunk, True)
+        ctx.save_for_backward(q, k, v, a, i, h0, states)
+        ctx.chunk = chunk
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        q, k, v, a, i, h0, states = ctx.saved_tensors
+        dq, dk, dv, da, di, dh0 = ssd_scan_bwd(
+            q, k, v, a, i, dy, dh, chunk=ctx.chunk, initial_state=h0,
+            states=states)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                da.to(a.dtype), di.to(i.dtype),
+                None if h0 is None else dh0.to(h0.dtype), None)
+
+
 def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              a: torch.Tensor, i: torch.Tensor, *, chunk: int,
              initial_state: Optional[torch.Tensor] = None):
@@ -208,34 +316,179 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in ``.launches``): q, k, v float32 or bfloat16 alike, read through their
     strides (a head stride of 0 reads one row for every head) with
     contiguous rows; the gates and the initial state are read as
-    contiguous f32. On CPU tensors it returns the plain version."""
+    contiguous f32. On CPU tensors it returns the plain version.
+
+    When autograd records (grad mode on and an input that requires grad),
+    the call goes through ``_SSDScan``: the forward also writes the state
+    before each chunk, and the backward launches the backward kernel on
+    the card (counted in ``.bwd_launches``) or runs the plain backward on
+    the CPU."""
     chunk = int(chunk)
     _check(q, k, v, a, i, chunk, initial_state)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (q, k, v, a, i, initial_state)):
+        return _SSDScan.apply(q, k, v, a, i, initial_state, chunk)
     if q.device.type == "cpu":
         return ssd_scan_ref(q, k, v, a, i, chunk=chunk,
                             initial_state=initial_state)
-    _check_card(q, k, v, chunk)
-    _build.check_no_grad("ssd_scan", q, k, v, a, i, initial_state)
-    B, S, H, dk = q.shape
-    dv = v.shape[-1]
-    dev = q.device
-    a32 = a.to(torch.float32).contiguous()
-    i32 = i.to(torch.float32).contiguous()
-    h0 = None if initial_state is None else \
-        initial_state.to(torch.float32).contiguous()
-    y = torch.empty((B, S, H, dv), dtype=v.dtype, device=dev)
-    h = torch.empty((B, H, dk, dv), dtype=torch.float32, device=dev)
-    _build.launch("repro_ssd_scan", dev, _build.ptr(q), _build.ptr(k),
-                  _build.ptr(v), _build.ptr(a32), _build.ptr(i32),
-                  None if h0 is None else _build.ptr(h0),
-                  int(v.dtype == torch.bfloat16), B, S, H, dk, dv, chunk,
-                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  _build.ptr(y), _build.ptr(h))
-    ssd_scan.launches += 1
+    y, h, _ = _launch_fwd(q, k, v, a, i, initial_state, chunk, False)
     return y, h
 
 
 ssd_scan.launches = 0
+ssd_scan.bwd_launches = 0
+
+
+def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
+                     initial_state=None, states=None,
+                     fault: Optional[str] = None):
+    """The plain backward of ``ssd_scan``, by chunks in f32, as the kernel
+    computes it: given dy (B, S, H, dv) and the gradient of the final
+    state ``dh_final`` (B, H, dk, dv; None for zeros), returns (dq, dk,
+    dv, da, di, dh0), all f32, dh0 the initial state's gradient.
+    ``states`` (B, nc, H, dk, dv) are the states before each chunk, from
+    the forward; None recomputes them. Per chunk, with cum_t = Σ_{l<=t}
+    a_l, tot = cum_{Q-1}, L_ts = e^{cum_t - cum_s} (s <= t), w_s =
+    e^{tot - cum_s} i_s, H_n the state before the chunk and dH the
+    gradient of the state after it (carried in reverse from dh_final):
+
+      dq_t  = Σ_{s<=t} (dy_t·v_s) L_ts i_s k_s + e^{cum_t} H_n dy_t
+      dk_s  = Σ_{t>=s} (dy_t·v_s) L_ts i_s q_t + w_s dH v_s
+      dv_s  = Σ_{t>=s} (q_t·k_s) L_ts i_s dy_t + w_s dHᵀ k_s
+      di_s  = Σ_{t>=s} (q_t·k_s)(dy_t·v_s) L_ts + e^{tot-cum_s} k_sᵀ dH v_s
+      dcum  = row sums minus column sums of G_ts = (q_t·k_s)(dy_t·v_s)
+              L_ts i_s, + e^{cum_t} q_t·H_n dy_t at t, - w_s k_sᵀ dH v_s
+              at s, + e^{tot}<H_n, dH> + Σ_s w_s k_sᵀ dH v_s at Q - 1
+      da_l  = Σ_{t>=l} dcum_t
+      dH_n  = e^{tot} dH + Σ_t e^{cum_t} q_t dy_tᵀ,   dh0 = dH_0.
+
+    Every exponent is <= 0 (a <= 0). ``fault`` (one of ``BWD_FAULTS``)
+    plants that error."""
+    if fault is not None and fault not in BWD_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}; known: {BWD_FAULTS}")
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    nc = S // chunk
+    f32 = torch.float32
+    if states is None:
+        states = ssd_scan_ref(q, k, v, a, i, chunk=chunk,
+                              initial_state=initial_state,
+                              return_states=True)[2]
+    states = states.to(f32)
+    qc = q.to(f32).reshape(B, nc, chunk, H, dk)
+    kc = k.to(f32).reshape(B, nc, chunk, H, dk)
+    vc = v.to(f32).reshape(B, nc, chunk, H, dv)
+    dyc = dy.to(f32).reshape(B, nc, chunk, H, dv)
+    ac = a.to(f32).reshape(B, nc, chunk, H)
+    ic = i.to(f32).reshape(B, nc, chunk, H)
+
+    cum = torch.cumsum(ac, dim=2)                           # (B,nc,Q,H)
+    tot = cum[:, :, -1]                                     # (B,nc,H)
+    ecum = mathfn.exp(cum)
+    ew = mathfn.exp(tot[:, :, None] - cum)                  # e^{tot-cum_s}
+    w = ew * ic
+
+    # intra-chunk: the (Q x Q) products, causal
+    L = mathfn.exp(segsum(ac.movedim(3, 2)))                # (B,nc,H,t,s)
+    i_s = ic.movedim(3, 2)[..., None, :]
+    scores = torch.einsum("bnthd,bnshd->bnhts", qc, kc)
+    dyv = torch.einsum("bnthv,bnshv->bnhts", dyc, vc)
+    sdl = scores * dyv * L
+    R = dyv * L * i_s
+    P = scores * L * i_s
+    dq = torch.einsum("bnhts,bnshd->bnthd", R, kc)
+    dk_ = torch.einsum("bnhts,bnthd->bnshd", R, qc)
+    dv_ = torch.einsum("bnhts,bnthv->bnshv", P, dyc)
+    di = sdl.sum(-2).movedim(2, 3)                          # (B,nc,Q,H)
+    G = sdl * i_s
+    dcum = (G.sum(-1) - G.sum(-2)).movedim(2, 3)
+
+    # the state's gradient, carried in reverse over the chunks
+    etot = mathfn.exp(tot)
+    qdy = torch.einsum("bnth,bnthd,bnthv->bnhdv", ecum, qc, dyc)
+    dH = torch.zeros((B, H, dk, dv), dtype=f32, device=q.device) \
+        if dh_final is None else dh_final.to(f32)
+    after = []
+    for n in reversed(range(nc)):
+        if fault == "bwd_carry_dropped" and n < nc - 1:
+            dH = torch.zeros_like(dH)
+        after.append(dH)
+        dH = dH * etot[:, n, :, None, None] + qdy[:, n]
+    dH_after = torch.stack(after[::-1], dim=1)              # (B,nc,H,dk,dv)
+
+    # inter-chunk: y_t += e^{cum_t} q_t·H_n
+    Hdy = torch.einsum("bnhde,bnthe->bnthd", states, dyc)
+    if fault != "bwd_dq_no_inter":
+        dq = dq + ecum[..., None] * Hdy
+    dcum = dcum + ecum * (qc * Hdy).sum(-1)
+    # the state update: H_{n+1} = e^{tot} H_n + Σ_s w_s k_s v_sᵀ
+    Z = torch.einsum("bnhde,bnshe->bnshd", dH_after, vc)    # dH v_s
+    dk_ = dk_ + w[..., None] * Z
+    dv_ = dv_ + w[..., None] * torch.einsum("bnhde,bnshd->bnshe",
+                                            dH_after, kc)
+    kdhv = (kc * Z).sum(-1)                                 # (B,nc,Q,H)
+    if fault != "bwd_di_no_state_term":
+        di = di + ew * kdhv
+    dcum = dcum - w * kdhv
+    dtot = etot * (states * dH_after).sum((-2, -1)) + (w * kdhv).sum(2)
+    dcum = torch.cat([dcum[:, :, :-1], dcum[:, :, -1:] + dtot[:, :, None]],
+                     dim=2)
+    if fault == "bwd_da_forward_cumsum":
+        da = torch.cumsum(dcum, dim=2)
+    else:
+        da = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    return (dq.reshape(B, S, H, dk), dk_.reshape(B, S, H, dk),
+            dv_.reshape(B, S, H, dv), da.reshape(B, S, H),
+            di.reshape(B, S, H), dH)
+
+
+def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
+                 initial_state=None, states=None):
+    """The backward of ``ssd_scan`` → (dq, dk, dv, da, di, dh0). On CUDA
+    tensors it launches the backward kernel (``csrc/ssd_scan_bwd.cu``,
+    counted in ``ssd_scan.bwd_launches``) and needs ``states``, the states
+    before each chunk that the forward wrote; dq, dk and dv come in the
+    inputs' dtype, da, di and dh0 in f32, and dq, dk per head even where q
+    and k are head-stride-0 views. On CPU tensors it returns the plain
+    backward, ``ssd_scan_bwd_ref`` (all f32)."""
+    chunk = int(chunk)
+    _check(q, k, v, a, i, chunk, initial_state)
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    if tuple(dy.shape) != (B, S, H, dv):
+        raise ValueError(f"dy {tuple(dy.shape)} is not (B, S, H, dv)")
+    if q.device.type == "cpu":
+        return ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final, chunk=chunk,
+                                initial_state=initial_state, states=states)
+    _check_card(q, k, v, chunk)
+    nc = S // chunk
+    if states is None or tuple(states.shape) != (B, nc, H, dk, dv) or \
+            states.dtype != torch.float32 or not states.is_contiguous():
+        raise ValueError("the backward kernel reads the forward's states "
+                         "before each chunk: (B, nc, H, dk, dv) f32, "
+                         "contiguous")
+    dev = q.device
+    f32 = torch.float32
+    dy = dy.detach().to(v.dtype).contiguous()
+    a32 = a.detach().to(f32).contiguous()
+    i32 = i.detach().to(f32).contiguous()
+    dhf = None if dh_final is None else dh_final.detach().to(f32).contiguous()
+    dq = torch.empty((B, S, H, dk), dtype=q.dtype, device=dev)
+    dk_ = torch.empty((B, S, H, dk), dtype=q.dtype, device=dev)
+    dv_ = torch.empty((B, S, H, dv), dtype=q.dtype, device=dev)
+    da = torch.empty((B, S, H), dtype=f32, device=dev)
+    di = torch.empty((B, S, H), dtype=f32, device=dev)
+    dh0 = torch.empty((B, H, dk, dv), dtype=f32, device=dev)
+    _build.launch("repro_ssd_scan_bwd", dev, _build.ptr(q), _build.ptr(k),
+                  _build.ptr(v), _build.ptr(a32), _build.ptr(i32),
+                  _build.ptr(states), _build.ptr(dy), _build.ptr(dhf),
+                  int(v.dtype == torch.bfloat16), B, S, H, dk, dv, chunk,
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  _build.ptr(dq), _build.ptr(dk_), _build.ptr(dv_),
+                  _build.ptr(da), _build.ptr(di), _build.ptr(dh0))
+    ssd_scan.bwd_launches += 1
+    return dq, dk_, dv_, da, di, dh0
 
 
 def hbm_bytes(B: int, S: int, H: int, dk: int, dv: int,
@@ -271,6 +524,48 @@ def bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
     t_bytes = hbm_bytes(B, S, H, dk, dv, itemsize)["minimum"] / \
         hbm_bytes_per_s * 1e3
     fl = flops(B, S, H, dk, dv, chunk)
+    t_ops = fl / tensor_flops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "f32_core_bound_ms": max(t_bytes, fl / f32_flops_per_s * 1e3)}
+
+
+def bwd_hbm_bytes(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
+                  itemsize: int) -> dict:
+    """HBM bytes one backward call must move: q and k once (one row serves
+    every head, as in Mamba2), v and dy once, the f32 gates once, the f32
+    states before each chunk and dh_final once; dq and dk (per head), dv,
+    the f32 da and di and dh0 written once."""
+    qk = 2 * B * S * dk * itemsize
+    v_dy = 2 * B * S * H * dv * itemsize
+    gates = 2 * B * S * H * 4
+    states = (B * (S // chunk) * H + 2 * B * H) * dk * dv * 4
+    grads = B * S * H * (2 * dk + dv) * itemsize + 2 * B * S * H * 4
+    return {"qk": qk, "v_dy": v_dy, "gates": gates, "states": states,
+            "grads": grads, "minimum": qk + v_dy + gates + states + grads}
+
+
+def bwd_flops(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> int:
+    """Multiply-adds (2 flops each) of ``ssd_scan_bwd_ref``'s products by
+    chunks: over the Q(Q+1)/2 causal pairs the scores q·k and dy·v, then
+    R k, Rᵀ q and Pᵀ dy; four (Q, dk, dv) products (H_n dy, dH v, dHᵀ k and
+    the dH update) and <H_n, dH>."""
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = pairs * (3 * dk + 2 * dv) + (4 * chunk + 1) * dk * dv
+    return 2 * B * H * (S // chunk) * per_chunk
+
+
+def bwd_bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
+              itemsize: int, hbm_bytes_per_s: float,
+              tensor_flops_per_s: float, f32_flops_per_s: float) -> dict:
+    """The least time (ms) the card could take for one backward call, as
+    ``bound``: the larger of its minimum HBM bytes over the memory rate and
+    its flops over the bf16 tensor cores' dense rate;
+    ``f32_core_bound_ms`` with the flops on the ordinary f32 cores, where
+    this kernel does them."""
+    t_bytes = bwd_hbm_bytes(B, S, H, dk, dv, chunk,
+                            itemsize)["minimum"] / hbm_bytes_per_s * 1e3
+    fl = bwd_flops(B, S, H, dk, dv, chunk)
     t_ops = fl / tensor_flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

@@ -3,10 +3,11 @@
 Two modes:
   * ``--arch paper-net`` — the paper's own experiment: MNIST-surrogate CNN,
     SGD(lr=0.01, momentum=0.5), N workers in clusters, blockchain on/off.
-  * a dense LLM arch (``smollm-135m``, ``yi-6b``, ``h2o-danube-1.8b``) —
-    federated LM training on synthetic token streams, the smoke-size
-    variant by default, the full config with ``--full`` (which also turns
-    on per-layer rematerialisation, as the reference does).
+  * an LLM arch (the dense ``smollm-135m``, ``yi-6b``, ``h2o-danube-1.8b``
+    or the hybrid ``zamba2-7b``) — federated LM training on synthetic
+    token streams, the smoke-size variant by default, the full config with
+    ``--full`` (which also turns on rematerialisation per layer, or per
+    super-layer for the hybrid, as the reference does).
 
 It runs on the card unless ``--device cpu`` is given. The flags and the
 printed lines are the reference's, plus ``--device``; ``run(args)`` is the
@@ -15,7 +16,7 @@ same run as a function and returns the protocol, the log and the payouts.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch paper-net \\
       --workers 8 --clusters 2 --rounds 50 [--no-blockchain] [--async]
-  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
       --rounds 5 --device cpu
 """
 from __future__ import annotations
@@ -33,10 +34,10 @@ from repro_torch.core import async_sim
 from repro_torch.core.protocol import SDFLBProtocol
 from repro_torch.data.datasets import make_federated_mnist, synthetic_tokens
 
-# the archs this driver trains: the dense decoders and the CNN (the hybrid
-# waits for a backward of K4, see ``models.api.lm_loss_fn``)
-TRAIN_ARCHS = [a for a in ARCH_IDS
-               if get_config(a).family == "dense"] + ["paper-net"]
+# the archs this launcher trains: the LLMs (dense decoders and the
+# hybrid) and the CNN
+TRAIN_ARCHS = [a for a in ARCH_IDS if get_config(a).family
+               in ("dense", "hybrid")] + ["paper-net"]
 
 
 def build_protocol(args):

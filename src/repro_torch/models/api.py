@@ -3,8 +3,9 @@
 
     init(cfg, gen, device)                     -> params (flat dict)
     loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)
-                                                  [cnn, dense]
-    lm_loss_fn(cfg)(params, batch)             -> (loss, metrics)  [dense]
+                                                  [cnn, dense, hybrid]
+    lm_loss_fn(cfg)(params, batch)             -> (loss, metrics)
+                                                  [dense, hybrid]
     forward(params, cfg, batch)                -> (logits, aux) [dense, hybrid]
     prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
     cache_shape(cfg, batch, seq), make_cache(cfg, batch, seq, device)
@@ -16,8 +17,7 @@ Decoder batches are ``{tokens (B, S)}`` (``{tokens, labels}``, each
 (W, B, S), for ``loss_fn``). The dense family runs through
 ``transformer``, the hybrid (zamba2) through ``hybrid``; the other LLM
 families wait for their slices (``transformer.check_ported`` raises).
-The hybrid is not trained here: its Mamba2 layers run K4, which has no
-backward (``loss_fn`` raises).
+The hybrid trains through K4 and its backward (``kernels.ssd_scan``).
 """
 from __future__ import annotations
 
@@ -160,22 +160,21 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
                kv_chunk: int = 1024):
     """One decoder's causal-LM loss, the LM branch of the reference's
     ``loss_fn``: f(params, {tokens (B, S), labels (B, S)}) -> (loss (),
-    {"loss", "aux"}). The hybrid raises: its Mamba2 layers run K4, which
-    has no backward yet (ROADMAP.md, Queue 2), so a loss through it on the
-    card would not train."""
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "hybrid (zamba2) training needs a backward of the SSD scan "
-            "kernel K4 (kernels/ssd_scan.py), which the port does not have "
-            "yet")
-    TF.check_ported(cfg)
+    {"loss", "aux"}), for the dense decoders and the hybrid (head
+    ``lm_head``, offset 0)."""
+    hybrid = cfg.family == "hybrid"
+    if not hybrid:
+        TF.check_ported(cfg)
 
     def f(params: Params, batch: Dict[str, torch.Tensor]):
-        x, aux = TF.decoder_forward(params, cfg, batch["tokens"],
-                                    remat=remat, kv_chunk=kv_chunk,
-                                    return_hidden=True)
-        head = (params["embed"].T if cfg.tie_embeddings
-                else params["lm_head"])
+        kw = dict(remat=remat, kv_chunk=kv_chunk, return_hidden=True)
+        if hybrid:
+            x, aux = HY.hybrid_forward(params, cfg, batch["tokens"], **kw)
+            head = params["lm_head"]
+        else:
+            x, aux = TF.decoder_forward(params, cfg, batch["tokens"], **kw)
+            head = (params["embed"].T if cfg.tie_embeddings
+                    else params["lm_head"])
         targets = _shifted_targets(batch["labels"], x.shape[1], 0)
         loss = _chunked_xent(x, head, targets) + aux
         return loss, {"loss": loss,
@@ -188,9 +187,9 @@ def loss_fn(cfg: ModelConfig, *, remat: bool = False, kv_chunk: int = 1024):
     """Returns f(params_w, batch, mask=None) -> (loss (W,), metrics), every
     worker's loss on its own batch. CNN: ``mask`` is the conv2 dropout keep
     mask (``cnn.dropout_mask``); None evaluates without dropout; metrics
-    {"loss", "accuracy"}. Dense decoders: batch leaves (W, B, S), workers
-    one after another through ``lm_loss_fn`` (``remat``, ``kv_chunk``),
-    no dropout; metrics {"loss", "aux"}, each (W,)."""
+    {"loss", "accuracy"}. Dense decoders and the hybrid: batch leaves (W,
+    B, S), workers one after another through ``lm_loss_fn`` (``remat``,
+    ``kv_chunk``), no dropout; metrics {"loss", "aux"}, each (W,)."""
     if cfg.family == "cnn":
         def f_cnn(params_w: Params, batch: Dict[str, torch.Tensor],
                   mask: Optional[torch.Tensor] = None):

@@ -6,7 +6,9 @@ The shared block (one parameter copy) runs after every
 super-layers of k = ``shared_attn_every`` Mamba2 layers and one
 shared-block application, and a remainder tail of Mamba2 layers follows.
 The reference scans the super-layers with ``lax.scan``; the port loops over
-them in Python.
+them in Python. ``remat`` recomputes each super-layer in backward
+(``torch.utils.checkpoint``), the reference's ``jax.checkpoint`` of its
+scan body.
 
 Params are one flat dict with dotted keys (``convert.py`` maps the
 reference's tree onto it): ``embed``, ``final_norm``, ``lm_head``; the
@@ -26,6 +28,7 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -111,7 +114,7 @@ def _group(params: Params, prefix: str, index=()) -> Dict:
 # ---------------------------------------------------------------------------
 
 def _shared_fwd(cfg: ModelConfig, sp, x, positions, cache=None,
-                cur_index=None):
+                cur_index=None, kv_chunk: int = 1024):
     """The shared attention + SwiGLU block. Returns (x, kv): the projected
     k/v of the sequence, or in decode (``cache`` given) the cache, written
     in place."""
@@ -119,8 +122,8 @@ def _shared_fwd(cfg: ModelConfig, sp, x, positions, cache=None,
     a, kv = L.apply_gqa(sp["attn"], h, num_heads=cfg.num_heads,
                         num_kv_heads=cfg.num_kv_heads,
                         head_dim=cfg.resolved_head_dim, positions=positions,
-                        rope_theta=cfg.rope_theta, cache=cache,
-                        cur_index=cur_index)
+                        rope_theta=cfg.rope_theta, kv_chunk=kv_chunk,
+                        cache=cache, cur_index=cur_index)
     x = x + a
     h = L.rms_norm(x, sp["norm2"], cfg.norm_eps)
     return x + L.apply_swiglu(sp["mlp"], h), kv
@@ -140,31 +143,53 @@ def _write(cache_group: Params, index, state: Params) -> None:
         cache_group[name][index] = t
 
 
+def _super_layer(cfg: ModelConfig, layers, shared, x, positions,
+                 kv_chunk: int) -> torch.Tensor:
+    """One super-layer outside prefill: its Mamba2 layers, then the shared
+    block (the reference's ``super_body``)."""
+    for lp in layers:
+        x, _ = _mamba_step(cfg, lp, x, False)
+    return _shared_fwd(cfg, shared, x, positions, kv_chunk=kv_chunk)[0]
+
+
 def hybrid_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   *, prefill_cache_len: int = 0):
-    """Returns (logits (B, S, V), aux_loss); in prefill mode
+                   *, remat: bool = False, kv_chunk: int = 1024,
+                   prefill_cache_len: int = 0, return_hidden: bool = False):
+    """Returns (logits (B, S, V), aux_loss); with ``return_hidden`` the
+    final-normed hidden states (B, S, d) instead of the logits (the loss
+    applies the head itself, chunk by chunk). In prefill mode
     (``prefill_cache_len > 0``) returns (last_logits (B, 1, V), cache): the
     Mamba2 states after the prompt and the shared block's K/V in the first
-    S slots of each super-layer's ``prefill_cache_len``-slot cache."""
+    S slots of each super-layer's ``prefill_cache_len``-slot cache.
+    ``remat`` checkpoints each super-layer when autograd records
+    (training): its forward, K4 included, runs again in backward, and K4's
+    saved states come from that run."""
     k, n_super, n_tail = _split_layers(cfg)
     x = params["embed"][tokens]
     B, S = tokens.shape
     positions = torch.arange(S, device=x.device)
     prefill = prefill_cache_len > 0
+    remat = remat and torch.is_grad_enabled() and not prefill
     cache = None
     if prefill:
         cache = make_hybrid_cache(cfg, B, prefill_cache_len, x.device)
     shared = _group(params, SHARED)
     for n in range(n_super):
+        if not prefill:
+            layers = [_group(params, SUPER, (n, j)) for j in range(k)]
+            if remat:
+                x = checkpoint(_super_layer, cfg, layers, shared, x,
+                               positions, kv_chunk, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = _super_layer(cfg, layers, shared, x, positions, kv_chunk)
+            continue
         for j in range(k):
-            x, st = _mamba_step(cfg, _group(params, SUPER, (n, j)), x,
-                                prefill)
-            if prefill:
-                _write(cache["super_ssm"], (n, j), st)
-        x, kv = _shared_fwd(cfg, shared, x, positions)
-        if prefill:
-            for name in ("k", "v"):
-                cache["shared_attn"][name][n, :, :S] = kv[name]
+            x, st = _mamba_step(cfg, _group(params, SUPER, (n, j)), x, True)
+            _write(cache["super_ssm"], (n, j), st)
+        x, kv = _shared_fwd(cfg, shared, x, positions, kv_chunk=kv_chunk)
+        for name in ("k", "v"):
+            cache["shared_attn"][name][n, :, :S] = kv[name]
     for t in range(n_tail):
         x, st = _mamba_step(cfg, _group(params, f"{TAIL}{t}."), x, prefill)
         if prefill:
@@ -172,6 +197,8 @@ def hybrid_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if prefill:
         return x[:, -1:, :] @ params["lm_head"], cache
+    if return_hidden:
+        return x, 0.0
     return x @ params["lm_head"], 0.0
 
 

@@ -9,9 +9,12 @@ linear-attention-with-scalar-decay
 which is Mamba2's SSD with q = C, k = B, v = x, a = Δ·A, i = Δ. On the card
 it is the K4 kernel (``kernels.ssd_scan``); on the CPU its plain version,
 the reference's chunked algorithm (``ssd_scan.ssd_scan_ref``, beside
-``ssd_scan.segsum``, the reference's ``_segsum``). Recurrences run in f32;
-block edges cast back, as in the reference. The mLSTM and sLSTM blocks of
-the reference's module wait for the xLSTM slice.
+``ssd_scan.segsum``, the reference's ``_segsum``). Under grad both go
+through K4's ``autograd.Function``, whose backward is the K4 backward
+kernel on the card and the plain backward on the CPU, where the reference
+takes XLA's autodiff of the jnp scan. Recurrences run in f32; block edges
+cast back, as in the reference. The mLSTM and sLSTM blocks of the
+reference's module wait for the xLSTM slice.
 """
 from __future__ import annotations
 
@@ -68,7 +71,9 @@ def init_mamba2(gen: torch.Generator, d_model: int, ssm_cfg, dtype,
     N, cw = ssm_cfg.state_dim, ssm_cfg.conv_width
 
     def randn(shape):
-        return torch.randn(shape, generator=gen, device=device)
+        # drawn on the generator's device and moved, as ``dense_init``: a
+        # CPU generator gives the same weights for a seed on every device
+        return torch.randn(shape, generator=gen, device=gen.device).to(device)
     f32 = dict(dtype=torch.float32, device=device)
     return {
         "w_z": dense_init(gen, (d_model, d_inner), d_model, dtype, device),

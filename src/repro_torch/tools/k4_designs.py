@@ -86,7 +86,7 @@ extern "C" int probe_ssd(int design, const void* q, const void* k,
         static_cast<const T*>(q), static_cast<const T*>(k),              \
         static_cast<const T*>(v), a, i, nullptr, B, S, H, dk, dv, chunk, \
         qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, static_cast<T*>(y), \
-        h, st);
+        h, nullptr, st);
   switch (design) { REPRO_DESIGNS(CASE) }
 #undef CASE
   return cudaErrorInvalidValue;

@@ -493,18 +493,17 @@ def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.cuda
 def test_kernel_wrappers_refuse_grad_on_card(cuda):
-    """Fault F4: no kernel has a backward, so each of the five wrappers
-    raises on a CUDA input that requires grad while grad mode is on,
-    before it launches; the same call under ``no_grad`` launches once. A
-    zamba2 forward (2 Mamba2 layers and the shared block, smoke widths)
-    whose params require grad raises through K4; under ``no_grad`` it
-    runs and launches K4 once a Mamba2 layer (the raising call launched
-    none)."""
+    """Fault F4: K1-K3 and K5 have no backward, so each of their four
+    wrappers raises on a CUDA input that requires grad while grad mode is
+    on, before it launches; the same call under ``no_grad`` launches once.
+    K4 has a backward: a zamba2 forward (2 Mamba2 layers and the shared
+    block, smoke widths) whose params require grad launches K4 once a
+    Mamba2 layer, and its backward the K4 backward kernel once a layer,
+    giving every leaf a finite gradient; under ``no_grad`` the forward
+    launches K4 once a layer and no backward."""
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.models import api
     u, pending, weights, keep = _inputs(8, 4096, "bfloat16", cuda)
-    q, k, v, a, i, _ = _ssd_inputs(1, 256, 2, 16, 16, "model", False,
-                                   "float32", cuda)
     rng = np.random.default_rng(5)
     sq, kc, vc = (torch.from_numpy(rng.standard_normal(s).astype(
         np.float32)).to(cuda) for s in ((2, 8, 64), (2, 300, 2, 64),
@@ -514,18 +513,16 @@ def test_kernel_wrappers_refuse_grad_on_card(cuda):
         (trust_agg.trust_agg, lambda g: (g(u), weights)),
         (fused_round.fused_async_agg, lambda g: (u, g(pending), weights,
                                                  keep)),
-        (ssd_scan.ssd_scan, lambda g: (g(q), k, v, a, i)),
         (swa_decode.swa_decode, lambda g: (sq, kc, g(vc), 299, 128)),
     ]
     for fn, args in calls:
-        kw = {"chunk": 128} if fn is ssd_scan.ssd_scan else {}
         before = fn.launches
         with pytest.raises(RuntimeError, match="no backward"):
-            fn(*args(lambda t: t.clone().requires_grad_(True)), **kw)
+            fn(*args(lambda t: t.clone().requires_grad_(True)))
         assert fn.launches == before, fn.__name__
         with torch.no_grad():
-            fn(*args(lambda t: t.clone().requires_grad_(True)), **kw)
-        fn(*args(lambda t: t), **kw)       # grad mode, nothing requires it
+            fn(*args(lambda t: t.clone().requires_grad_(True)))
+        fn(*args(lambda t: t))             # grad mode, nothing requires it
         torch.cuda.synchronize()
         assert fn.launches == before + 2, fn.__name__
 
@@ -534,12 +531,183 @@ def test_kernel_wrappers_refuse_grad_on_card(cuda):
     tokens = torch.zeros((1, cfg.ssm.chunk_size), dtype=torch.long,
                          device=cuda)
     trained = {n: p.requires_grad_(True) for n, p in params.items()}
-    before = ssd_scan.ssd_scan.launches
-    with pytest.raises(RuntimeError, match="ssd_scan: the CUDA kernel has "
-                       "no backward"):
-        api.forward(trained, cfg, {"tokens": tokens})
+    K4 = ssd_scan.ssd_scan
+    before = (K4.launches, K4.bwd_launches)
+    logits, _ = api.forward(trained, cfg, {"tokens": tokens})
+    assert (K4.launches, K4.bwd_launches) == (before[0] + 2, before[1])
+    grads = torch.autograd.grad(logits.float().square().mean(),
+                                list(trained.values()))
+    torch.cuda.synchronize()
+    assert (K4.launches, K4.bwd_launches) == (before[0] + 2, before[1] + 2)
+    assert all(torch.isfinite(g).all() for g in grads)
     with torch.no_grad():
         logits, _ = api.forward(trained, cfg, {"tokens": tokens})
     torch.cuda.synchronize()
     assert torch.isfinite(logits).all()
-    assert ssd_scan.ssd_scan.launches == before + 2
+    assert (K4.launches, K4.bwd_launches) == (before[0] + 4, before[1] + 2)
+
+
+# K4's backward against ssd_scan_bwd_ref: (B, S, H, dk, dv, chunk, gates,
+# initial state and dh_final, per-head q and k). zamba2-7b's training shape
+# (B 4, S 512, H 112, chunk 128) with its gates and with gentle ones, the
+# smoke config's SSD shape, one chunk, a run from an initial state with a
+# nonzero dh_final, per-head q and k, dk = dv = 128 (the rows read from
+# global memory), and a ragged chunk.
+SSD_BWD_TRAIN = (4, 512, 112, 64, 64, 128)
+SSD_BWD_CASES = [(*SSD_BWD_TRAIN, "model", False, False),
+                 (*SSD_BWD_TRAIN, "gentle", False, False),
+                 (4, 128, 8, 16, 64, 64, "gentle", False, False),
+                 (2, 128, 16, 64, 64, 128, "gentle", False, False),
+                 (2, 512, 8, 64, 64, 128, "gentle", True, False),
+                 (2, 512, 8, 64, 64, 128, "model", True, True),
+                 (1, 256, 2, 128, 128, 128, "gentle", True, False),
+                 (2, 160, 3, 24, 40, 80, "gentle", True, True)]
+
+
+def _ssd_bwd_case(B, S, H, dk, dv, chunk, gates, init, per_head, dtype,
+                  dev, seed=0):
+    """K4's operands, the forward's states on the card, dy and dh_final,
+    and the plain backward's f32 result on them."""
+    q, k, v, a, i, h0 = _ssd_inputs(B, S, H, dk, dv, gates, init, dtype, dev,
+                                    seed=seed, per_head=per_head)
+    gen = torch.Generator(device=dev).manual_seed(seed + 17)
+    dy = torch.randn((B, S, H, dv), generator=gen, device=dev).to(v.dtype)
+    dh = torch.randn((B, H, dk, dv), generator=gen, device=dev) \
+        if init else None
+    _, _, states = ssd_scan._launch_fwd(q, k, v, a, i, h0, chunk, True)
+    want = ssd_scan.ssd_scan_bwd_ref(q.float(), k.float(), v.float(), a, i,
+                                     dy, dh, chunk=chunk, initial_state=h0,
+                                     states=states)
+    return (q, k, v, a, i, dy, dh), h0, states, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,gates,init,per_head",
+                         SSD_BWD_CASES,
+                         ids=["-".join(map(str, c)) for c in SSD_BWD_CASES])
+def test_ssd_scan_bwd_matches_plain_backward_on_card(
+        cuda, B, S, H, dk, dv, chunk, gates, init, per_head, dtype):
+    """dq, dk, dv, da, di and dh0 within ``ssd_scan.bwd_margins`` of the
+    plain backward's f32 result on the same card inputs and states, one
+    backward launch a call; and the forward's states within the forward's
+    check of the plain forward's."""
+    args, h0, states, want = _ssd_bwd_case(B, S, H, dk, dv, chunk, gates,
+                                           init, per_head, dtype, cuda)
+    q, k, v, a, i = args[:5]
+    _, _, want_states = ssd_scan.ssd_scan_ref(
+        q.float(), k.float(), v.float(), a, i, chunk=chunk,
+        initial_state=h0, return_states=True)
+    assert ssd_scan.excess(states, want_states) <= 0
+    before = ssd_scan.ssd_scan.bwd_launches
+    got = ssd_scan.ssd_scan_bwd(*args, chunk=chunk, initial_state=h0,
+                                states=states)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan.bwd_launches == before + 1
+    assert [g.dtype for g in got] == [v.dtype] * 3 + [torch.float32] * 3
+    assert got[0].shape == (B, S, H, dk) and got[5].shape == (B, H, dk, dv)
+    assert all(torch.isfinite(g.float()).all() for g in got)
+    margins = ssd_scan.bwd_margins(got, want)
+    assert max(margins.values()) <= 1, margins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gates", ["gentle", "model"])
+def test_ssd_scan_bwd_tolerance_rejects_planted_faults_on_card(cuda, gates):
+    """At the training shape each of ``BWD_FAULTS`` fails the check the
+    kernel passes above, by a margin > 1."""
+    args, h0, states, want = _ssd_bwd_case(*SSD_BWD_TRAIN, gates, True,
+                                           False, "bfloat16", cuda)
+    for fault in ssd_scan.BWD_FAULTS:
+        got = ssd_scan.ssd_scan_bwd_ref(
+            *(x.float() if x is not None else None for x in args),
+            chunk=128, initial_state=h0, states=states, fault=fault)
+        assert max(ssd_scan.bwd_margins(got, want).values()) > 1, fault
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_bwd_is_one_deterministic_launch_on_card(cuda, dtype):
+    """4 calls make 4 kernel launches and no copy or memset, and two calls
+    give the same bits."""
+    args, h0, states, _ = _ssd_bwd_case(2, 512, 8, 64, 64, 128, "model",
+                                        True, False, dtype, cuda)
+    one = ssd_scan.ssd_scan_bwd(*args, chunk=128, initial_state=h0,
+                                states=states)
+    two = ssd_scan.ssd_scan_bwd(*args, chunk=128, initial_state=h0,
+                                states=states)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    enqueued, device = _build.launch_records(
+        lambda: ssd_scan.ssd_scan_bwd(*args, chunk=128, initial_state=h0,
+                                      states=states))
+    assert enqueued == ["cudaLaunchKernel"] * 4, enqueued
+    assert all("ssd_chunk_scan_bwd" in n for n in device), device
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_head", [False, True])
+def test_ssd_scan_autograd_on_card_matches_autograd_of_plain(cuda, per_head):
+    """``ssd_scan`` under grad on the card (K4 with its states, then the
+    backward kernel) against ``torch.autograd`` through the plain forward
+    on the same card inputs, with an initial state and a loss on the final
+    state; q and k shared by the heads go through the expand backward."""
+    q, k, v, a, i, h0 = _ssd_inputs(2, 256, 8, 64, 64, "gentle", True,
+                                    "float32", cuda, per_head=per_head)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dy = torch.randn(v.shape, generator=gen, device=cuda)
+    dh = torch.randn(h0.shape, generator=gen, device=cuda)
+    base = [x.detach().clone().requires_grad_(True)
+            for x in ((q if per_head else q[:, :, :1]),
+                      (k if per_head else k[:, :, :1]), v, a, i, h0)]
+
+    def run(fn):
+        for x in base:
+            x.grad = None
+        qq, kk = base[:2]
+        if not per_head:
+            qq, kk = (x.expand(q.shape) for x in (qq, kk))
+        y, h = fn(qq, kk, *base[2:5], chunk=128, initial_state=base[5])
+        torch.autograd.backward([y, h], [dy, dh])
+        return [x.grad.clone() for x in base]
+    before = (ssd_scan.ssd_scan.launches, ssd_scan.ssd_scan.bwd_launches)
+    got = run(ssd_scan.ssd_scan)
+    torch.cuda.synchronize()
+    assert (ssd_scan.ssd_scan.launches, ssd_scan.ssd_scan.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = run(ssd_scan.ssd_scan_ref)
+    margins = ssd_scan.bwd_margins(got, want)
+    assert max(margins.values()) <= 1, margins
+
+
+@pytest.mark.cuda
+def test_hybrid_protocol_inits_and_trains_on_card(cuda):
+    """Fault F5: ``SDFLBProtocol`` over zamba2 on the card draws its
+    weights from a CPU generator, which ``init_mamba2`` handed to
+    ``torch.randn`` with the card as device (a RuntimeError). Now the
+    weights are the CPU's, bit for bit but A_log, the log of a linspace
+    that each device takes itself (within f32 roundings), and a sync
+    round (2 x 2 workers, smoke config) launches K4 and its backward."""
+    from repro_torch.configs.base import FederationConfig, TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.protocol import SDFLBProtocol
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api
+    cfg = get_smoke_config("zamba2-7b")
+    fed = FederationConfig(num_clusters=2, workers_per_cluster=2)
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, grad_clip=1.0)
+    proto = SDFLBProtocol(cfg, fed, tc, use_blockchain=False, seed=0,
+                          device=cuda)
+    cpu = api.init(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    for k, v in cpu.items():
+        got = proto.global_params[k].cpu()
+        if k.endswith("A_log"):
+            torch.testing.assert_close(got, v, rtol=1e-6, atol=0)
+        else:
+            assert torch.equal(got, v), k
+    K4 = ssd_scan.ssd_scan
+    before = (K4.launches, K4.bwd_launches)
+    rec = proto.run_round(synthetic_tokens(4, 2, 128, cfg.vocab_size, seed=0))
+    torch.cuda.synchronize()
+    assert K4.launches > before[0] and K4.bwd_launches > before[1]
+    assert np.isfinite(rec.scores).all() and np.isfinite(rec.losses).all()
+    proto.finalize()

@@ -182,7 +182,8 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
     """No CPU plain path computes exp, log, sqrt, tanh or erf through an op
     that MKL's vector math library serves: the kernels' plain versions, the
     prefill and decode attention, the Mamba2 decode step, the trust
-    scores, and training: the LLM loss with its backward, the attention's
+    scores, and training: the LLM loss with its backward (a dense decoder
+    and the zamba2 hybrid, through K4's plain backward), the attention's
     chunked backward, and the clipped AdamW step."""
     from repro_torch.configs.base import FederationConfig, TrainConfig
     from repro_torch.configs.registry import get_smoke_config
@@ -216,6 +217,16 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
             p, {"tokens": toks, "labels": toks})
         torch.autograd.grad(loss, list(p.values()))
 
+    zcfg = get_smoke_config("zamba2-7b").replace(dtype="float32")
+    z_params = api.init(zcfg, torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
+
+    def hybrid_loss_and_grad():
+        p = {k: v.requires_grad_(True) for k, v in z_params.items()}
+        loss, _ = api.lm_loss_fn(zcfg, remat=True)(
+            p, {"tokens": toks, "labels": toks})
+        torch.autograd.grad(loss, list(p.values()))
+
     def attention_backward():
         qkv = [t(1, 256, 8, 16).requires_grad_(True),
                t(1, 256, 2, 16).requires_grad_(True),
@@ -235,6 +246,8 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
         "trust_agg_ref": lambda: ref.trust_agg_ref(u, w),
         "fused_async_agg_ref": lambda: ref.fused_async_agg_ref(u, u, w, w),
         "ssd_scan_ref": lambda: ref.ssd_scan_ref(q, k, v, a, i, chunk=32),
+        "ssd_scan_bwd_ref": lambda: ref.ssd_scan_bwd_ref(
+            q, k, v, a, i, t(2, 128, 3, 8), t(2, 3, 16, 8), chunk=32),
         "swa_decode_ref": lambda: ref.swa_decode_ref(
             t(2, 8, 16), t(2, 600, 2, 16), t(2, 600, 2, 16), 599, 256),
         "blocked_attention": lambda: layers.blocked_attention(
@@ -249,6 +262,7 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
         "scores_from_stats": lambda: trust.scores_from_stats(
             stats, FederationConfig()),
         "lm_loss_and_grad": lm_loss_and_grad,
+        "hybrid_loss_and_grad": hybrid_loss_and_grad,
         "blocked_attention_backward": attention_backward,
         "adamw_update": adamw_step,
     }

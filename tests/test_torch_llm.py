@@ -306,11 +306,27 @@ def test_configs_reach_rope_and_head():
     torch.testing.assert_close(logits, x @ p["embed"].T, rtol=0, atol=0)
 
 
-def test_hybrid_loss_raises_naming_the_k4_backward():
-    """zamba2 is not trained: its Mamba2 layers run K4, which has no
-    backward (fault F4), so ``loss_fn`` raises and says so."""
-    cfg = get_smoke_config("zamba2-7b")
-    for make in (api.loss_fn, api.lm_loss_fn):
-        with pytest.raises(NotImplementedError, match="backward of the SSD "
-                           "scan kernel K4"):
-            make(cfg)
+def test_hybrid_loss_trains_through_the_ssd_function():
+    """zamba2 trains: ``loss_fn`` gives each worker's loss, and the loss's
+    graph runs through K4's ``autograd.Function`` (on the CPU its plain
+    forward and backward), so every leaf, the Mamba2 gates included, gets a
+    finite gradient that is not all zero."""
+    cfg = get_smoke_config("zamba2-7b").replace(dtype="float32")
+    p = api.init(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    toks = torch.randint(0, cfg.vocab_size, (2, 1, 64),
+                         generator=torch.Generator().manual_seed(1))
+    pw = {k: v.detach().requires_grad_(True)
+          for k, v in api.stack(p, 2).items()}
+    losses, m = api.loss_fn(cfg)(pw, {"tokens": toks, "labels": toks})
+    assert losses.shape == (2,) and set(m) == {"loss", "aux"}
+    seen, todo = set(), [losses.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        todo += [f for f, _ in fn.next_functions]
+    assert "_SSDScanBackward" in {type(f).__name__ for f in seen}
+    g = torch.autograd.grad(losses.sum(), list(pw.values()))
+    for name, x in zip(pw, g):
+        assert torch.isfinite(x).all() and x.abs().sum() > 0, name
