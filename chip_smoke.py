@@ -85,7 +85,9 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   state with a nonzero dh_final, per-head q and k; each of
                   ``ssd_scan.BWD_FAULTS`` must fail by a margin > 1; two
                   launches bitwise equal and one kernel a call; times
-                  beside ``ssd_scan.bwd_bound`` and the plain backward's
+                  beside ``ssd_scan.bwd_bound`` and the plain backward's;
+                  each case names the instantiation it took
+                  (``ssd_scan.bwd_design``)
   zamba_grad_parity  zamba2-7b at full width cut to 3 layers: loss and
                   every leaf's gradient on the card against the CPU from
                   the same weights, f32 and bf16, batch 1, seq 256, remat
@@ -655,6 +657,10 @@ def run_protocol(phase, *, async_mode, clusters=4, per_cluster=4, batch=64,
         recs.append(proto.run_round(b, participation=p))
         walls.append(time.monotonic() - t)
         if i == profile_round:
+            # the round returns with its last kernels (K2 or K3) still on
+            # the card; stopped before they finish, the profiler loses
+            # their device records
+            torch.cuda.synchronize()
             prof.stop()
     payouts = proto.finalize()
     torch.cuda.synchronize()
@@ -1887,6 +1893,7 @@ def ssd_bwd_case(K4, name, shape, gates, init, dtype, gen):
     margins = {"plain": K4.bwd_margins(got, plain),
                "autograd": K4.bwd_margins(got, auto)}
     row = {**shape, "gates": gates, "initial_state": init, "dtype": dtype,
+           "design": K4.BWD_DESIGNS[K4.bwd_design(v.dtype, dk, dv, chunk)],
            "max_abs_err": max(float((g.float() - w).abs().max())
                               for g, w in zip(got, plain)),
            "plain_absmax": {n: float(w.abs().max())

@@ -6,9 +6,9 @@
 //   * mbarriers and the tensor-map encoder of the bulk copy engine (K1,
 //     K4);
 //   * cp.async copies (K4, K5);
-//   * the tensor-core pieces of K4 and K5: ldmatrix,
+//   * the tensor-core pieces of K4 (and its backward) and K5: ldmatrix,
 //     mma.sync m16n8k16 on bf16 and the split of f32 values into bf16
-//     parts whose products keep f32's accuracy.
+//     parts whose products keep f32's accuracy; K4's decay exp.
 //
 // No float atomics anywhere. The scores these kernels feed are committed
 // on-chain as <f8 inside Merkle-hashed records, so every sum has one fixed
@@ -181,6 +181,21 @@ __device__ __forceinline__ void split_bf16(float x, float y,
     x -= f.x;
     y -= f.y;
   }
+}
+
+// the two bf16 values of a 32-bit register, in f32
+__device__ __forceinline__ float2 unpack_bf16x2(uint32_t x) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
+}
+
+// exp(x) for x <= 0 (K4's decay at or below the diagonal) as one
+// ex2.approx.ftz of x log2(e): the product's rounding moves the result by
+// |x| 2^-24 of itself, ex2.approx by ~2^-22, and results below 2^-126
+// flush to 0
+__device__ __forceinline__ float exp_of(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
 }
 
 // c += a b for one m16n8k16 tile: a the 16 x 16 bf16 A fragment, (b0, b1)

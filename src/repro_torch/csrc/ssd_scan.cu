@@ -82,11 +82,13 @@
 
 namespace {
 
+using rt::exp_of;
 using rt::mbar_expect;
 using rt::mbar_init;
 using rt::mbar_wait;
 using rt::smem_u32;
 using rt::tensor_map_encoder;
+using rt::unpack_bf16x2;
 
 // -- the ordinary-core design (f32 at dk or dv > 64) -------------------------
 //
@@ -474,20 +476,6 @@ __device__ __forceinline__ void tma_load(void* smem, const CUtensorMap* map,
             smem_u32(smem)),
         "l"(m), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar))
         : "memory");
-}
-
-__device__ __forceinline__ float2 unpack_bf16x2(uint32_t x) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&x));
-}
-
-// exp(x) for x <= 0 (the decay at or below the diagonal) as one
-// ex2.approx.ftz of x log2(e): the product's rounding moves the result by
-// |x| 2^-24 of itself, ex2.approx by ~2^-22, and results below 2^-126
-// flush to 0
-__device__ __forceinline__ float exp_of(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
-  return y;
 }
 
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {

@@ -26,10 +26,16 @@ least time the card could take for a call.
 The backward: when autograd records, ``ssd_scan`` goes through
 ``_SSDScan``, whose forward also keeps the state before each chunk (the
 kernel writes them to an optional (B, nc, H, dk, dv) f32 output) and whose
-backward is ``ssd_scan_bwd``: the backward kernel
-(``csrc/ssd_scan_bwd.cu``, f32 products, one block per (batch, head)
-walking the chunks in reverse) on the card, the plain backward
-``ssd_scan_bwd_ref`` (the VJP by chunks, in f32) on the CPU. The reference
+backward is ``ssd_scan_bwd``: the backward kernel (``csrc/ssd_scan_bwd.cu``)
+on the card, the plain backward ``ssd_scan_bwd_ref`` (the VJP by chunks, in
+f32) on the CPU. At dk, dv <= 64 and chunks that are a multiple of 16 the
+kernel does its products on the tensor cores, a cluster of four blocks per
+(batch, head) taking the chunks in parallel; the operands that are f32 by
+nature (the gated scores P and R, the states H_n and their gradients, and
+exp(cum_t) q_t) enter as bf16 parts, two for bf16 inputs, three for f32
+ones, and ``ssd_scan_bwd_ref(..., parts=n)`` rounds them the same way;
+wider heads and other chunks keep the first design's f32 FMAs, one block
+per (batch, head) (``bwd_design`` says which a call takes). The reference
 has no kernel here: it trains through XLA's autodiff of the jnp scan.
 ``bwd_bound`` gives the backward's least time.
 """
@@ -88,7 +94,17 @@ BWD_ATOL_REL = 1e-4
 BWD_FAULTS = ("bwd_carry_dropped",        # dH reset at every chunk
               "bwd_da_forward_cumsum",    # da as a forward cumsum of dcum
               "bwd_di_no_state_term",     # di misses e^{tot-cum_s} kᵀ dH v
-              "bwd_dq_no_inter")          # dq misses e^{cum_t} H_n dy_t
+              "bwd_dq_no_inter",          # dq misses e^{cum_t} H_n dy_t
+              "bwd_one_part")             # the split operands in one part
+
+# what the backward kernel's instantiations are, by the number its dispatch
+# gives (``bwd_design``)
+BWD_DESIGNS = ("tensor cores, clusters of 4, bf16",
+               "tensor cores, clusters of 4, f32",
+               "f32 FMAs, one block per (b, h), bf16, rows in shared memory",
+               "f32 FMAs, one block per (b, h), bf16, rows from global memory",
+               "f32 FMAs, one block per (b, h), f32, rows in shared memory",
+               "f32 FMAs, one block per (b, h), f32, rows from global memory")
 
 
 def bf16_parts(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -342,7 +358,8 @@ ssd_scan.bwd_launches = 0
 
 def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
                      initial_state=None, states=None,
-                     fault: Optional[str] = None):
+                     fault: Optional[str] = None,
+                     parts: Optional[int] = None):
     """The plain backward of ``ssd_scan``, by chunks in f32, as the kernel
     computes it: given dy (B, S, H, dv) and the gradient of the final
     state ``dh_final`` (B, H, dk, dv; None for zeros), returns (dq, dk,
@@ -364,9 +381,19 @@ def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
       dH_n  = e^{tot} dH + Σ_t e^{cum_t} q_t dy_tᵀ,   dh0 = dH_0.
 
     Every exponent is <= 0 (a <= 0). ``fault`` (one of ``BWD_FAULTS``)
-    plants that error."""
+    plants that error. ``parts`` rounds the operands that the tensor-core
+    kernel splits into bf16 parts to that many parts (``bf16_parts``): R
+    and P, H_n in H_n dy_t, dH in dH v_s and dHᵀ k_s, and e^{cum_t} q_t in
+    the Σ_t update of dH; the planted fault ``bwd_one_part`` is one part.
+    <H_n, dH> and the scores' elementwise products stay f32, as in the
+    kernel."""
     if fault is not None and fault not in BWD_FAULTS:
         raise ValueError(f"unknown fault {fault!r}; known: {BWD_FAULTS}")
+    if fault == "bwd_one_part":
+        parts = 1
+
+    def split(x):
+        return x if parts is None else bf16_parts(x, parts)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
     nc = S // chunk
@@ -395,8 +422,8 @@ def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     scores = torch.einsum("bnthd,bnshd->bnhts", qc, kc)
     dyv = torch.einsum("bnthv,bnshv->bnhts", dyc, vc)
     sdl = scores * dyv * L
-    R = dyv * L * i_s
-    P = scores * L * i_s
+    R = split(dyv * L * i_s)
+    P = split(scores * L * i_s)
     dq = torch.einsum("bnhts,bnshd->bnthd", R, kc)
     dk_ = torch.einsum("bnhts,bnthd->bnshd", R, qc)
     dv_ = torch.einsum("bnhts,bnthv->bnshv", P, dyc)
@@ -406,7 +433,11 @@ def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
 
     # the state's gradient, carried in reverse over the chunks
     etot = mathfn.exp(tot)
-    qdy = torch.einsum("bnth,bnthd,bnthv->bnhdv", ecum, qc, dyc)
+    if parts is None:
+        qdy = torch.einsum("bnth,bnthd,bnthv->bnhdv", ecum, qc, dyc)
+    else:
+        qdy = torch.einsum("bnthd,bnthv->bnhdv",
+                           split(ecum[..., None] * qc), dyc)
     dH = torch.zeros((B, H, dk, dv), dtype=f32, device=q.device) \
         if dh_final is None else dh_final.to(f32)
     after = []
@@ -418,15 +449,15 @@ def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     dH_after = torch.stack(after[::-1], dim=1)              # (B,nc,H,dk,dv)
 
     # inter-chunk: y_t += e^{cum_t} q_t·H_n
-    Hdy = torch.einsum("bnhde,bnthe->bnthd", states, dyc)
+    Hdy = torch.einsum("bnhde,bnthe->bnthd", split(states), dyc)
     if fault != "bwd_dq_no_inter":
         dq = dq + ecum[..., None] * Hdy
     dcum = dcum + ecum * (qc * Hdy).sum(-1)
     # the state update: H_{n+1} = e^{tot} H_n + Σ_s w_s k_s v_sᵀ
-    Z = torch.einsum("bnhde,bnshe->bnshd", dH_after, vc)    # dH v_s
+    Z = torch.einsum("bnhde,bnshe->bnshd", split(dH_after), vc)  # dH v_s
     dk_ = dk_ + w[..., None] * Z
     dv_ = dv_ + w[..., None] * torch.einsum("bnhde,bnshd->bnshe",
-                                            dH_after, kc)
+                                            split(dH_after), kc)
     kdhv = (kc * Z).sum(-1)                                 # (B,nc,Q,H)
     if fault != "bwd_di_no_state_term":
         di = di + ew * kdhv
@@ -489,6 +520,18 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
                   _build.ptr(da), _build.ptr(di), _build.ptr(dh0))
     ssd_scan.bwd_launches += 1
     return dq, dk_, dv_, da, di, dh0
+
+
+def bwd_design(dtype: torch.dtype, dk: int, dv: int, chunk: int) -> int:
+    """The instantiation of the backward kernel that a call on the card
+    with these operands launches: an index into ``BWD_DESIGNS``, from the
+    kernel library's own dispatch (so it builds the library)."""
+    n = _build.load().repro_ssd_scan_bwd_design(
+        int(dtype == torch.bfloat16), int(dk), int(dv), int(chunk))
+    if n < 0:
+        raise ValueError(f"dk {dk}, dv {dv}, chunk {chunk}: the kernel "
+                         f"takes chunk <= {MAX_CHUNK} and dk, dv <= {MAX_D}")
+    return n
 
 
 def hbm_bytes(B: int, S: int, H: int, dk: int, dv: int,

@@ -551,8 +551,12 @@ def test_kernel_wrappers_refuse_grad_on_card(cuda):
 # initial state and dh_final, per-head q and k). zamba2-7b's training shape
 # (B 4, S 512, H 112, chunk 128) with its gates and with gentle ones, the
 # smoke config's SSD shape, one chunk, a run from an initial state with a
-# nonzero dh_final, per-head q and k, dk = dv = 128 (the rows read from
-# global memory), and a ragged chunk.
+# nonzero dh_final, per-head q and k, dk = dv = 128 (the first design, the
+# rows read from global memory), and a chunk of 80 with dk, dv padded.
+# Then the tensor-core design's clusters of 4 blocks a (b, h): 3 chunks (a
+# block without one), 5 (runs of 2, 2, 1 and none) and 12 (runs of 3,
+# restaged), per-head q and k from an initial state at dk = dv = 128, and a
+# chunk of 40 (the first design, the rows in shared memory).
 SSD_BWD_TRAIN = (4, 512, 112, 64, 64, 128)
 SSD_BWD_CASES = [(*SSD_BWD_TRAIN, "model", False, False),
                  (*SSD_BWD_TRAIN, "gentle", False, False),
@@ -561,7 +565,12 @@ SSD_BWD_CASES = [(*SSD_BWD_TRAIN, "model", False, False),
                  (2, 512, 8, 64, 64, 128, "gentle", True, False),
                  (2, 512, 8, 64, 64, 128, "model", True, True),
                  (1, 256, 2, 128, 128, 128, "gentle", True, False),
-                 (2, 160, 3, 24, 40, 80, "gentle", True, True)]
+                 (2, 160, 3, 24, 40, 80, "gentle", True, True),
+                 (4, 384, 8, 64, 64, 128, "model", True, False),
+                 (2, 640, 4, 64, 64, 128, "gentle", True, False),
+                 (2, 1536, 4, 64, 64, 128, "model", True, True),
+                 (1, 256, 2, 128, 128, 128, "model", True, True),
+                 (2, 160, 3, 24, 40, 40, "gentle", True, True)]
 
 
 def _ssd_bwd_case(B, S, H, dk, dv, chunk, gates, init, per_head, dtype,
@@ -609,6 +618,35 @@ def test_ssd_scan_bwd_matches_plain_backward_on_card(
     assert all(torch.isfinite(g.float()).all() for g in got)
     margins = ssd_scan.bwd_margins(got, want)
     assert max(margins.values()) <= 1, margins
+
+
+# a shape that each instantiation of the backward kernel takes in each
+# dtype: the tensor-core design, and the first with the rows in shared memory
+# and read from global memory
+SSD_BWD_DESIGN_SHAPES = [(2, 256, 4, 64, 64, 128), (2, 160, 3, 24, 40, 40),
+                         (1, 256, 2, 128, 128, 128)]
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_launches_every_instantiation_on_card(cuda):
+    """Every instantiation that the backward kernel's dispatch can pick
+    (``ssd_scan.BWD_DESIGNS``, by ``ssd_scan.bwd_design``) is launched,
+    once a call, and passes the check against the plain backward."""
+    seen = set()
+    for dtype in ("bfloat16", "float32"):
+        for B, S, H, dk, dv, chunk in SSD_BWD_DESIGN_SHAPES:
+            seen.add(ssd_scan.bwd_design(getattr(torch, dtype), dk, dv,
+                                         chunk))
+            args, h0, states, want = _ssd_bwd_case(
+                B, S, H, dk, dv, chunk, "model", True, False, dtype, cuda)
+            before = ssd_scan.ssd_scan.bwd_launches
+            got = ssd_scan.ssd_scan_bwd(*args, chunk=chunk, initial_state=h0,
+                                        states=states)
+            torch.cuda.synchronize()
+            assert ssd_scan.ssd_scan.bwd_launches == before + 1
+            margins = ssd_scan.bwd_margins(got, want)
+            assert max(margins.values()) <= 1, (dtype, chunk, dk, margins)
+    assert seen == set(range(len(ssd_scan.BWD_DESIGNS))), seen
 
 
 @pytest.mark.cuda

@@ -267,6 +267,44 @@ def test_tolerance_rejects_planted_backward_faults(gates):
         ssd_scan.ssd_scan_bwd_ref(*args, chunk=64, fault="nope")
 
 
+@pytest.mark.parametrize("gates", ["model", "gentle"])
+def test_two_part_split_stays_inside_the_backward_tolerance(gates):
+    """The tensor-core backward kernel splits the operands that are f32 by
+    nature (the gated scores P and R, the states H_n, their gradients dH
+    and e^{cum_t} q_t) into two bf16 parts each for bf16 inputs. Emulated in
+    the plain backward (``parts=2``) at a cut of zamba2's training shape
+    (S 512, H 4, dk = dv = 64, chunk 128, bf16 operands, head-stride-0 q
+    and k, an initial state and a final state's gradient), that stays
+    inside ``ssd_scan.bwd_margins`` around the plain f32 backward, while
+    one part (the fault ``bwd_one_part``, the low parts lost) falls
+    outside it. Gates as the model draws them or gentle."""
+    B, S, H, dk, dv, chunk = 2, 512, 4, 64, 64, 128
+    rng = np.random.default_rng(11)
+    f = np.float32
+
+    def bf16(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(f)).to(
+            torch.bfloat16).float()
+    bc = bf16((B, S, 2 * dk))
+    k = bc[..., :dk][:, :, None].expand(B, S, H, dk)
+    q = bc[..., dk:][:, :, None].expand(B, S, H, dk)
+    v, dy = bf16((B, S, H, dv)), bf16((B, S, H, dv))
+    i = torch.nn.functional.softplus(
+        torch.from_numpy(rng.standard_normal((B, S, H)).astype(f)))
+    a = (i * -torch.linspace(1.0, 16.0, H) if gates == "model" else
+         -0.02 * torch.from_numpy(rng.random((B, S, H)).astype(f)))
+    h0 = torch.from_numpy(rng.standard_normal((B, H, dk, dv)).astype(f))
+    dh = torch.from_numpy(rng.standard_normal((B, H, dk, dv)).astype(f))
+    args = (q, k, v, a, i, dy, dh)
+    want = ssd_scan.ssd_scan_bwd_ref(*args, chunk=chunk, initial_state=h0)
+    two = ssd_scan.ssd_scan_bwd_ref(*args, chunk=chunk, initial_state=h0,
+                                    parts=2)
+    assert max(ssd_scan.bwd_margins(two, want).values()) <= 1
+    one = ssd_scan.ssd_scan_bwd_ref(*args, chunk=chunk, initial_state=h0,
+                                    fault="bwd_one_part")
+    assert max(ssd_scan.bwd_margins(one, want).values()) > 1
+
+
 def test_no_gradient_wanted_takes_no_function():
     """Without grad (or with no input that requires it) ``ssd_scan``
     returns the plain forward's values with no graph, as the serve path
