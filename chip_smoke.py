@@ -176,8 +176,33 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   tokens), then at full size (bf16, batch 4, prompt 1024,
                   32 tokens) twice with the same tokens; no kernel (both
                   have window 0)
+  moe_parity      qwen2-moe-a2.7b and olmoe-1b-7b: card against CPU at
+                  full width cut to 2 layers (f32 and bf16; batch 2,
+                  prompt 160, 4 tokens); one MoE layer at qwen2's full
+                  width (d 2048, 60 experts top-4, 4 shared) on tied
+                  tokens with capacity drops, forward and backward, card
+                  against CPU: the same capacity plan, outputs and
+                  gradients within 1e-4 (f32) or top_k + 2 half bf16
+                  steps of max; in bf16 the serve's logits within the
+                  tolerance plus the CPU's own bf16-vs-f32 gap where a
+                  routing choice flipped
+  moe_serve       both MoE configs at full size (bf16; 14.3 B and 6.9 B
+                  parameters), batch 4, prompt 1024, 32 tokens, twice with
+                  the same tokens; decode ms a step beside the weight
+                  floor (every expert runs at C >= 1); no kernel
+  moe_round       olmoe-1b-7b at full width cut to one layer (D =
+                  625,612,800) through ``SDFLBProtocol`` as
+                  ``launch/train.py --full`` builds it, without the chain:
+                  3 sync rounds at W = 4 (2 clusters, batch 4, seq 512)
+                  and 3 async rounds at the W the async state leaves room
+                  for, each with a falling held-out loss and no kernel;
+                  the MoE layer's forward and backward at (4, 512, 2048)
+                  three times without the deterministic flag, bitwise
+                  equal; a same-seed one-round rerun with bitwise-equal
+                  params and scores
 
-Then it prints the run's total wall, the card's ``nvidia-smi`` line, one
+Then it prints the run's total wall with each phase's wall seconds, the
+card's ``nvidia-smi`` line, one
 ``{"kernels": [...]}``
 line (each kernel's launches on its paths, its error against the plain
 version, its time, the plain version's time, its bound and the time of a
@@ -892,9 +917,10 @@ def phase_serve_parity():
     emit(out)
 
 
-def parity_record(cpu, card, dtype, gen):
+def parity_record(cpu, card, dtype, gen, tol=None):
     """Card serve against CPU serve: prefill and decode logits within
-    PARITY_TOL, and the greedy tokens."""
+    ``tol`` (PARITY_TOL by default), and the greedy tokens."""
+    tol = PARITY_TOL[dtype] if tol is None else tol
     lg_cpu, lg_card = cpu.logits.float(), card.logits.float().cpu()
     check(torch.isfinite(lg_card).all())
     same = (cpu.tokens == card.tokens.cpu()).all(dim=0)
@@ -904,7 +930,7 @@ def parity_record(cpu, card, dtype, gen):
     if upto < gen:
         top2 = lg_cpu[:, upto].topk(2, dim=-1).values
         margin = float((top2[:, 0] - top2[:, 1]).min())
-        check(margin <= 2 * PARITY_TOL[dtype],
+        check(margin <= 2 * tol,
               f"{dtype}: tokens part at step {upto}, margin {margin}")
     diff = (lg_card - lg_cpu)[:, :upto + 1].abs()
     rec = {"prefill_logits_err": float(diff[:, 0].max()),
@@ -913,9 +939,9 @@ def parity_record(cpu, card, dtype, gen):
            "tokens_equal": bool(same.all()),
            "first_token_step_apart": None if same.all() else upto,
            "logits_absmax": float(lg_cpu.abs().max())}
-    check(rec["prefill_logits_err"] <= PARITY_TOL[dtype], rec)
+    check(rec["prefill_logits_err"] <= tol, rec)
     check(rec["decode_logits_err"] is None
-          or rec["decode_logits_err"] <= PARITY_TOL[dtype], rec)
+          or rec["decode_logits_err"] <= tol, rec)
     return rec
 
 
@@ -2038,13 +2064,15 @@ def _release():
     torch.cuda.empty_cache()
 
 
-def _zamba_round_run(cfg, fresh, workers, async_mode, rounds, seed=0):
+def _round_run(cfg, fresh, workers, async_mode, rounds, seed=0,
+               kernels=("ssd_scan", "ssd_scan_bwd"), phase="zamba_round"):
     """``rounds`` rounds of SDFLBProtocol over ``cfg`` on the card, built as
     launch/train.py builds it (no chain): each round's wall, tokens/s, K4's
     forward and backward launches, scores; the peak memory; before (the
     same seeded init) and after, the held-out loss on the continuation of
     the first round's streams (``ZROUND``), which must fall, and the loss
-    on ``fresh``, a batch of an unrelated seed."""
+    on ``fresh``, a batch of an unrelated seed. Each of ``kernels`` must
+    launch every round and no other kernel at all."""
     from repro_torch.configs.base import FederationConfig, TrainConfig
     from repro_torch.core import async_sim
     from repro_torch.core.protocol import SDFLBProtocol
@@ -2089,10 +2117,9 @@ def _zamba_round_run(cfg, fresh, workers, async_mode, rounds, seed=0):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = read_counts()
-        check(counts["ssd_scan"] >= 1 and counts["ssd_scan_bwd"] >= 1
-              and all(counts[k] == 0 for k in counts
-                      if k not in ("ssd_scan", "ssd_scan_bwd")),
-              f"zamba_round: launches {counts}")
+        check(all(counts[k] >= 1 for k in kernels)
+              and all(counts[k] == 0 for k in counts if k not in kernels),
+              f"{phase}: launches {counts}")
         check(np.isfinite(out.scores).all() and np.isfinite(out.losses).all())
         rec["round_wall_s"].append(wall)
         rec["tokens_per_s"].append(tokens / wall)
@@ -2111,7 +2138,7 @@ def _zamba_round_run(cfg, fresh, workers, async_mode, rounds, seed=0):
     rec["heldout_loss"] = [before[0], after[0]]
     rec["fresh_seed_loss"] = [before[1], after[1]]
     check(all(torch.isfinite(v).all() for v in proto.global_params.values()))
-    check(after[0] < before[0], f"zamba_round: held-out loss {before[0]} "
+    check(after[0] < before[0], f"{phase}: held-out loss {before[0]} "
           f"-> {after[0]}")
     proto.finalize()
     return proto, rec, first
@@ -2120,7 +2147,7 @@ def _zamba_round_run(cfg, fresh, workers, async_mode, rounds, seed=0):
 def phase_zamba_round(name):
     """zamba2-7b at full width (one super-layer) federated on the card:
     3 sync rounds at W = 4 and 3 async rounds, each run with a falling
-    held-out loss (``_zamba_round_run``) and K4's forward and backward on
+    held-out loss (``_round_run``) and K4's forward and backward on
     every round; a same-seed
     one-round rerun with bitwise-equal global params and scores; one
     worker's backward under ``torch.use_deterministic_algorithms(True,
@@ -2142,7 +2169,7 @@ def phase_zamba_round(name):
            // 64, "memory_held_at_start": held, "device_free_at_start": free}
     reset_counts()
     W = ZROUND["workers"]
-    proto, out["sync"], (p1, s1) = _zamba_round_run(cfg, fresh, W, False,
+    proto, out["sync"], (p1, s1) = _round_run(cfg, fresh, W, False,
                                                     ZROUND["rounds"])
     D = api.param_count(proto.global_params)
     out["D"] = D
@@ -2158,7 +2185,7 @@ def phase_zamba_round(name):
     del step
     _release()
     # a same-seed rerun of the first round
-    again, rerun, (p2, s2) = _zamba_round_run(cfg, fresh, W, False, 1)
+    again, rerun, (p2, s2) = _round_run(cfg, fresh, W, False, 1)
     identical = all(torch.equal(p1[k], p2[k]) for k in p1) and \
         np.array_equal(s1, s2)
     check(identical, "zamba_round: same-seed rounds differ")
@@ -2172,7 +2199,7 @@ def phase_zamba_round(name):
     Wa = next((w for w in (4, 2) if need[w] <= free - ZROUND_FREE), 2)
     out["async_reckoning"] = {"bytes_needed": need, "device_free": free,
                               "workers": Wa}
-    proto, out["async"], _ = _zamba_round_run(cfg, fresh, Wa, True,
+    proto, out["async"], _ = _round_run(cfg, fresh, Wa, True,
                                               ZROUND["rounds"])
     out["async"]["bytes_per_param_per_worker"] = \
         (out["async"]["max_memory_allocated"] - held) / (D * Wa)
@@ -2723,6 +2750,361 @@ def phase_dense_serve(name):
     emit(out)
 
 
+# MoE: qwen2-moe-a2.7b (60 routed experts top-4, d_ff 1408, 4 shared
+# experts, V 151,936) and olmoe-1b-7b (64 experts top-8, d_ff 1024, V
+# 50,304), both d 2048. moe_parity cuts both to 2 layers at full width as
+# dense_serve does and holds one MoE layer at qwen2's full width to its CPU
+# result: 2 rows of 256 tokens whose last 128 positions repeat the row's
+# first token, so equal routing weights meet at the capacity boundary and
+# tokens drop. Tolerances of that layer against the CPU, of each tensor's
+# largest value: f32 products in other orders; in bf16 half a bf16 step for
+# each of the top_k + 2 terms a token's gradient adds after rounding each
+# to bf16 (its k experts', the shared experts' and the router's), 0.0117
+# for qwen2 (measured 0.00763 on x's gradient, NVIDIA H100 80GB HBM3 at
+# 700.00 W; PERF.md section 6).
+MOE = ("qwen2-moe-a2.7b", "olmoe-1b-7b")
+MOE_LAYER = dict(batch=2, seq=256, tied_from=128, seed=7)
+MOE_LAYER_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -9}   # bf16: a term
+# moe_round: olmoe-1b-7b at full width cut to one layer (D = 625,612,800),
+# bf16, through SDFLBProtocol as launch/train.py --full builds it, at
+# ZROUND's shape (W = 4 in 2 clusters, batch 4, seq 512; 3 sync rounds, 3
+# async at the W the async state leaves room for), no chain; no kernel on
+# this path (the mixed bf16/f32 tree takes the per-leaf trust statistics).
+# Then the MoE layer at the round's shape (B 4, S 512), its forward and
+# backward three times without the deterministic flag: the same bits.
+MOE_ROUND_ARCH = "olmoe-1b-7b"
+MOE_ROUND_CUTS = {"num_layers": 1}
+MOE_RERUNS = 3
+
+
+def _moe_fwd_bwd(moe_cfg, lp, x, dout):
+    """One MoE layer's (gather path) output, aux loss and the gradients of
+    sum(out · dout) + aux with respect to x and every param."""
+    from repro_torch.models import moe
+    lp = {k: v.detach().clone().requires_grad_(True) for k, v in lp.items()}
+    x = x.detach().clone().requires_grad_(True)
+    out, aux = moe.apply_moe(lp, x, moe_cfg)
+    grads = torch.autograd.grad((out.float() * dout).sum() + aux,
+                                [x, *lp.values()])
+    return [out.detach(), aux.detach(), *grads]
+
+
+def _moe_plan(moe_cfg, router, x):
+    """The capacity plan (``moe._routes``) of x's tokens, on the CPU."""
+    from repro_torch.models import moe
+    xf = x.reshape(-1, x.shape[-1])
+    probs, _ = moe._router_probs({"router": router}, xf, moe_cfg)
+    w, idx = moe._topk_weights(probs, moe_cfg.top_k)
+    C = moe.capacity(moe_cfg, xf.shape[0], moe_cfg.capacity_factor)
+    return [t.cpu() for t in moe._routes(w, idx, C)]
+
+
+class _RoutePlans:
+    """While entered, records each MoE layer call's routes: every token's
+    experts and which of them kept the token (``moe._routes``), on the
+    CPU."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.plans = moe, moe._routes, []
+
+        def spy(*args, **kwargs):
+            out = self.orig(*args, **kwargs)
+            self.plans.append((out[1].cpu(), out[3].cpu()))
+            return out
+        moe._routes = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._routes = self.orig
+
+
+def _plans_differ(a, b):
+    """Of two runs' routes, call by call: the (token, j) routes that go to
+    another expert or are kept in one run and dropped in the other."""
+    routes = sum(int(((ea != eb) | (ka != kb)).sum())
+                 for (ea, ka), (eb, kb) in zip(a, b))
+    return {"calls": len(a), "routes": routes,
+            "routes_total": sum(k.numel() for _, k in a)}
+
+
+def _steps_gap(a, b):
+    """Max |logits a - logits b| over the steps up to and including the
+    first at which the two runs' greedy tokens part."""
+    same = (a.tokens.cpu() == b.tokens.cpu()).all(dim=0)
+    upto = int(same.float().argmin()) if not same.all() else same.numel()
+    return float((a.logits.float().cpu() - b.logits.float().cpu())
+                 [:, :upto + 1].abs().max())
+
+
+def phase_moe_parity():
+    """qwen2-moe-a2.7b and olmoe-1b-7b at full width cut to 2 layers:
+    ``serve`` on the card against the CPU (f32 and bf16, DENSE_PARITY),
+    no kernel launch, each MoE call's capacity plan compared; then one MoE
+    layer at qwen2's full width with tied tokens and capacity drops,
+    forward and backward, against the CPU: the same capacity plan,
+    outputs and gradients within MOE_LAYER_TOL's bounds. Every number is
+    emitted before the checks fail the phase.
+
+    A bf16 rounding can flip a routing choice (a near tie among a token's
+    top-k experts, or at an expert's capacity), and a flipped token moves
+    the logits by far more than a rounding. Where the card's plans differ
+    from the CPU's, bf16 logits are held within PARITY_TOL plus what bf16
+    alone moves the CPU's (the same weights in f32), as the CPU tests
+    hold bf16 gradients to the reference."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api, moe
+    cpu_dev, dev = torch.device("cpu"), torch.device("cuda")
+    out = {"phase": "moe_parity", "parity": DENSE_PARITY,
+           "tol": PARITY_TOL, "layer": MOE_LAYER,
+           "layer_tol": MOE_LAYER_TOL}
+    failures = []
+    for arch in MOE:
+        rec = {}
+        cfg32 = get_config(arch).replace(dtype="float32", num_layers=2)
+        t0 = time.monotonic()
+        p32 = api.init(cfg32, torch.Generator().manual_seed(3), cpu_dev)
+        rec["cpu_init_s"] = time.monotonic() - t0
+        # a bf16 init is the f32 one rounded (dense_init draws in f32), the
+        # router and shared gate kept in f32: the smoke config's dtypes
+        dts = {k: v.dtype for k, v in api.init(
+            get_smoke_config(arch), torch.Generator().manual_seed(0),
+            cpu_dev).items()}
+        cpu32 = None
+        for dtype in ("float32", "bfloat16"):
+            cfg = cfg32.replace(dtype=dtype)
+            params = p32 if dtype == "float32" else \
+                {k: v.to(dts[k]) for k, v in p32.items()}
+            t0 = time.monotonic()
+            with _RoutePlans() as cpu_plans:
+                cpu = serve(cfg, device="cpu", params=params, **DENSE_PARITY)
+            cpu_s = time.monotonic() - t0
+            reset_counts()
+            with _RoutePlans() as card_plans:
+                card = serve(cfg, device="cuda",
+                             params={k: v.cuda() for k, v in params.items()},
+                             **DENSE_PARITY)
+            _expect(f"moe parity {arch}", read_counts(),
+                    _trust_launches(0, 0))
+            differ = _plans_differ(cpu_plans.plans, card_plans.plans)
+            tol, gap = PARITY_TOL[dtype], None
+            if dtype == "bfloat16" and differ["routes"]:
+                gap = _steps_gap(cpu, cpu32)
+                tol += gap
+            try:
+                r = parity_record(cpu, card, dtype, DENSE_PARITY["gen"],
+                                  tol=tol)
+            except AssertionError as e:
+                failures.append(f"{arch} {dtype}: {e}")
+                r = {"failed": str(e)[:500]}
+            rec[dtype] = {**r, "plans_differ": differ, "tol": tol,
+                          "cpu_bf16_vs_f32_gap": gap, "cpu_serve_s": cpu_s}
+            if dtype == "float32":
+                cpu32 = cpu
+            del params, card
+            torch.cuda.empty_cache()
+        out[arch] = rec
+        del p32, cpu, cpu32
+    lcfg = get_config(MOE[0]).moe
+    B, S, tied = MOE_LAYER["batch"], MOE_LAYER["seq"], MOE_LAYER["tied_from"]
+    layer_tol = {"float32": MOE_LAYER_TOL["float32"],
+                 "bfloat16": MOE_LAYER_TOL["bfloat16"] * (lcfg.top_k + 2)}
+    out["layer_tol"] = layer_tol
+    layer = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        gen = torch.Generator().manual_seed(MOE_LAYER["seed"])
+        lp = moe.init_moe(gen, 2048, lcfg, dt, cpu_dev)
+        x = torch.randn((B, S, 2048), generator=gen).to(dt)
+        x[:, tied:] = x[:, :1]
+        dout = torch.randn((B, S, 2048), generator=gen)
+        plans = [_moe_plan(lcfg, lp["router"].to(d), x.to(d))
+                 for d in (dev, cpu_dev)]
+        same_plan = all(torch.equal(a, b) for a, b in zip(*plans))
+        kept = plans[1][3]
+        reset_counts()
+        got = _moe_fwd_bwd(lcfg, {k: v.cuda() for k, v in lp.items()},
+                           x.cuda(), dout.cuda())
+        torch.cuda.synchronize()
+        _expect("moe parity layer", read_counts(), _trust_launches(0, 0))
+        want = _moe_fwd_bwd(lcfg, lp, x, dout)
+        names = ["out", "aux", "x", *lp]
+        rel = {n: float((a.cpu().float() - b.float()).abs().max()
+                        / b.float().abs().max().clamp_min(1e-30))
+               for n, a, b in zip(names, got, want)}
+        layer[dtype] = {"capacity": int(moe.capacity(lcfg, B * S,
+                                                     lcfg.capacity_factor)),
+                        "dropped_routes": int((~kept).sum()),
+                        "routes": int(kept.numel()), "same_plan": same_plan,
+                        "finite": all(bool(torch.isfinite(a).all())
+                                      for a in got),
+                        "rel_err": rel}
+        if not (same_plan and not kept.all() and layer[dtype]["finite"]
+                and max(rel.values()) <= layer_tol[dtype]):
+            failures.append(f"layer {dtype}: {layer[dtype]}")
+        del lp, got, want
+    out["layer"] = {**MOE_LAYER, **layer}
+    torch.cuda.empty_cache()
+    emit(out)
+    check(not failures, f"moe_parity: {failures}")
+
+
+def phase_moe_serve(name):
+    """qwen2-moe-a2.7b and olmoe-1b-7b at full size (bf16, seeded weights)
+    serving DENSE_SERVE twice: the same tokens both times, prefill and
+    decode times, peak memory; the gather path runs every expert at C >= 1,
+    so a decode step reads every weight (the floor: the weights' bytes over
+    the card's memory rate). No kernel may launch (window 0)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api, moe
+    bw, _ = peaks(name)
+    out = {"phase": "moe_serve", "serve": DENSE_SERVE, "hbm_bytes_s": bw}
+    B, P, G = DENSE_SERVE["batch"], DENSE_SERVE["prompt_len"], \
+        DENSE_SERVE["gen"]
+    dev = torch.device("cuda")
+    for arch in MOE:
+        cfg = get_config(arch)
+        params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+        n_params = api.param_count(params)
+        weight_bytes = sum(v.numel() * v.element_size()
+                           for v in params.values())
+        del params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        reset_counts()
+        r = serve(cfg, seed=0, **DENSE_SERVE)
+        peak = torch.cuda.max_memory_allocated()
+        _expect(f"moe serve {arch}", read_counts(), _trust_launches(0, 0))
+        check(r.tokens.shape == (B, G) and torch.isfinite(r.logits).all())
+        check(torch.equal(r.tokens, r.logits.float().argmax(-1)))
+        again = serve(cfg, seed=0, **DENSE_SERVE)
+        check(torch.equal(again.tokens, r.tokens),
+              f"{arch}: same-seed serve runs emitted different tokens")
+        floor_ms = weight_bytes / bw * 1e3
+        out[arch] = {
+            "layers": cfg.num_layers, "d_model": cfg.d_model,
+            "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+            "params": n_params, "weight_bytes": weight_bytes,
+            "prefill_capacity": moe.capacity(cfg.moe, B * P,
+                                              cfg.moe.capacity_factor),
+            "decode_capacity": moe.capacity(cfg.moe, B,
+                                            2 * cfg.moe.capacity_factor),
+            "prefill_ms": r.prefill_s * 1e3,
+            "prefill_tok_s": B * P / r.prefill_s,
+            "decode_ms_per_step": r.decode_s * 1e3 / (G - 1),
+            "decode_tok_s": B * (G - 1) / r.decode_s,
+            "rerun_prefill_ms": again.prefill_s * 1e3,
+            "rerun_decode_ms_per_step": again.decode_s * 1e3 / (G - 1),
+            "weight_stream_bound_ms_per_step": floor_ms,
+            "decode_over_floor": r.decode_s * 1e3 / (G - 1) / floor_ms,
+            "memory_held_at_start": held,
+            "max_memory_allocated": peak, "identical_tokens": True,
+            "sample_tokens": r.tokens[0, :16].tolist()}
+        del r, again
+        torch.cuda.empty_cache()
+    emit(out)
+
+
+def phase_moe_round(name):
+    """olmoe-1b-7b at full width cut to one layer federated on the card:
+    3 sync rounds at W = 4 and 3 async rounds, each with a falling
+    held-out loss (``_round_run``) and no kernel launch; the MoE layer's
+    forward and backward at the round's shape three times without the
+    deterministic flag, bitwise equal; a same-seed one-round rerun with
+    bitwise-equal global params and scores."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    cfg = get_config(MOE_ROUND_ARCH).replace(**MOE_ROUND_CUTS)
+    fresh = {k: v[0] for k, v in synthetic_tokens(
+        1, ZROUND["batch"], ZROUND["seq"], cfg.vocab_size,
+        seed=ZROUND_FRESH_SEED).items()}
+    _release()
+    held = torch.cuda.memory_allocated()
+    free, _ = torch.cuda.mem_get_info()
+    out = {"phase": "moe_round", "arch": MOE_ROUND_ARCH,
+           "cuts": MOE_ROUND_CUTS, **ZROUND, "dtype": cfg.dtype,
+           "chain": False, "experts": cfg.moe.num_experts,
+           "top_k": cfg.moe.top_k, "memory_held_at_start": held,
+           "device_free_at_start": free}
+    W = ZROUND["workers"]
+    proto, out["sync"], (p1, s1) = _round_run(
+        cfg, fresh, W, False, ZROUND["rounds"], kernels=(),
+        phase="moe_round")
+    D = api.param_count(proto.global_params)
+    out["D"] = D
+    out["sync"]["bytes_per_param_per_worker"] = \
+        (out["sync"]["max_memory_allocated"] - held) / (D * W)
+    # the MoE layer at the round's shape, from the trained params: the
+    # last quarter of every row is one token (ties and drops)
+    check(not torch.are_deterministic_algorithms_enabled())
+    pre = "layers.moe."
+    lp = {k[len(pre):]: v[0] for k, v in proto.global_params.items()
+          if k.startswith(pre)}
+    del proto
+    _release()
+    B, S = ZROUND["batch"], ZROUND["seq"]
+    gen = torch.Generator(dev).manual_seed(11)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    x[:, 3 * S // 4:] = x[:1, :1]
+    dout = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+    plan = _moe_plan(cfg.moe, lp["router"], x)
+    runs, walls = [], []
+    for _ in range(MOE_RERUNS):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        runs.append(_moe_fwd_bwd(cfg.moe, lp, x, dout))
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+    same = all(torch.equal(a, b) for again in runs[1:]
+               for a, b in zip(runs[0], again))
+    out["layer_reruns"] = {
+        "runs": MOE_RERUNS, "bitwise_equal": same, "wall_s": walls,
+        "dropped_routes": int((~plan[3]).sum()), "routes": plan[3].numel(),
+        "deterministic_algorithms": False}
+    check(same, "moe_round: the MoE layer's reruns differ")
+    check(not plan[3].all(), "moe_round: the layer's input drops nothing")
+    del runs, lp, x, dout
+    _release()
+    # a same-seed rerun of the first round
+    again, rerun, (p2, s2) = _round_run(cfg, fresh, W, False, 1, kernels=(),
+                                        phase="moe_round")
+    identical = all(torch.equal(p1[k], p2[k]) for k in p1) and \
+        np.array_equal(s1, s2)
+    check(identical, "moe_round: same-seed rounds differ")
+    out["rerun"] = {"identical_params_and_scores": identical,
+                    "round_wall_s": rerun["round_wall_s"]}
+    del again, p1, p2
+    _release()
+    free, _ = torch.cuda.mem_get_info()
+    need = {w: ZROUND_BYTES_PER_PARAM["async"] * D * w for w in (4, 2)}
+    Wa = next((w for w in (4, 2) if need[w] <= free - ZROUND_FREE), 2)
+    out["async_reckoning"] = {"bytes_needed": need, "device_free": free,
+                              "workers": Wa}
+    proto, out["async"], _ = _round_run(cfg, fresh, Wa, True,
+                                        ZROUND["rounds"], kernels=(),
+                                        phase="moe_round")
+    out["async"]["bytes_per_param_per_worker"] = \
+        (out["async"]["max_memory_allocated"] - held) / (D * Wa)
+    del proto
+    _release()
+    emit(out)
+
+
+def _timed(walls, phase, fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``walls[phase]``."""
+    t0 = time.monotonic()
+    try:
+        return fn(*args)
+    finally:
+        walls[phase] = time.monotonic() - t0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's path needs one",
@@ -2730,41 +3112,57 @@ def main():
         return 1
     import repro_torch  # noqa: F401  fails where the checkout lacks src/
     t_start = time.monotonic()
-    name, smi_line = phase_device()
-    phase_build()
-    table = phase_kernels(name)
-    phase_parity()
+    walls = {}
+
+    def run(phase, fn, *args):
+        return _timed(walls, phase, fn, *args)
+    name, smi_line = run("device", phase_device)
+    run("build", phase_build)
+    table = run("kernels", phase_kernels, name)
+    run("parity", phase_parity)
     launches = {k: 0 for k in counters()}
-    sync_counts, sync_hashes = main_path("protocol_sync", False)
-    async_counts, _ = main_path("protocol_async", True)
+    sync_counts, sync_hashes = run("protocol_sync", main_path,
+                                   "protocol_sync", False)
+    async_counts, _ = run("protocol_async", main_path, "protocol_async",
+                          True)
     for c in (sync_counts, async_counts):
         for k, n in c.items():
             launches[k] += n
-    phase_cohort()
-    phase_profile()
-    reset_counts()
-    _, again = run_protocol("determinism", async_mode=False)
-    if again != sync_hashes:
-        raise AssertionError("same-seed runs sealed different blocks")
-    emit({"phase": "determinism", "blocks": len(again),
-          "identical": True, "head": again[-1]})
-    swa_row = phase_swa_kernel(name)
-    phase_serve_parity()
-    serve_counts = phase_serve(name)
-    ssd_row = phase_ssd_kernel(name)
-    phase_zamba_parity()
-    zamba_counts = phase_zamba_serve(name)
-    ssd_bwd_row = phase_ssd_bwd_kernel(name)
-    phase_zamba_grad_parity()
-    round_counts = phase_zamba_round(name)
-    new_paths = [phase_multi_task(), phase_multi_task_parity()]
-    events_counts, events_task = phase_events()
-    new_paths += [events_counts, phase_read_path(events_task)]
+    run("cohort", phase_cohort)
+    run("profile", phase_profile)
+
+    def determinism():
+        reset_counts()
+        _, again = run_protocol("determinism", async_mode=False)
+        if again != sync_hashes:
+            raise AssertionError("same-seed runs sealed different blocks")
+        emit({"phase": "determinism", "blocks": len(again),
+              "identical": True, "head": again[-1]})
+    run("determinism", determinism)
+    swa_row = run("swa_kernel", phase_swa_kernel, name)
+    run("serve_parity", phase_serve_parity)
+    serve_counts = run("serve", phase_serve, name)
+    ssd_row = run("ssd_kernel", phase_ssd_kernel, name)
+    run("zamba_parity", phase_zamba_parity)
+    zamba_counts = run("zamba_serve", phase_zamba_serve, name)
+    ssd_bwd_row = run("ssd_bwd_kernel", phase_ssd_bwd_kernel, name)
+    run("zamba_grad_parity", phase_zamba_grad_parity)
+    round_counts = run("zamba_round", phase_zamba_round, name)
+    new_paths = [run("multi_task", phase_multi_task),
+                 run("multi_task_parity", phase_multi_task_parity)]
+    events_counts, events_task = run("events", phase_events)
+    new_paths += [events_counts,
+                  run("read_path", phase_read_path, events_task)]
     del events_task
-    new_paths += [phase_network(), phase_examples()]
-    phase_f4()
-    new_paths += [phase_llm_parity(), phase_llm_round(name)]
-    phase_dense_serve(name)
+    new_paths += [run("network", phase_network),
+                  run("examples", phase_examples)]
+    run("f4", phase_f4)
+    new_paths += [run("llm_parity", phase_llm_parity),
+                  run("llm_round", phase_llm_round, name)]
+    run("dense_serve", phase_dense_serve, name)
+    run("moe_parity", phase_moe_parity)
+    run("moe_serve", phase_moe_serve, name)
+    run("moe_round", phase_moe_round, name)
     for counts in new_paths:
         for k in ("trust_score", "trust_agg", "fused_async_agg"):
             launches[k] += counts[k]
@@ -2827,7 +3225,8 @@ def main():
         "library_ms": ssd_bwd_row["library_ms"],
         "shape": {k: ssd_bwd_row[k] for k in ("B", "S", "H", "dk", "dv",
                                                "chunk", "gates", "dtype")}})
-    emit({"phase": "total", "wall_s": time.monotonic() - t_start})
+    emit({"phase": "total", "wall_s": time.monotonic() - t_start,
+          "phase_wall_s": walls})
     print(smi_line, flush=True)
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,9 @@
 Two modes:
   * ``--arch paper-net`` — the paper's own experiment: MNIST-surrogate CNN,
     SGD(lr=0.01, momentum=0.5), N workers in clusters, blockchain on/off.
-  * an LLM arch (the dense ``smollm-135m``, ``yi-6b``, ``h2o-danube-1.8b``
-    or the hybrid ``zamba2-7b``) — federated LM training on synthetic
+  * an LLM arch (the dense ``smollm-135m``, ``yi-6b``, ``h2o-danube-1.8b``,
+    the MoE ``qwen2-moe-a2.7b``, ``olmoe-1b-7b`` or the hybrid
+    ``zamba2-7b``) — federated LM training on synthetic
     token streams, the smoke-size variant by default, the full config with
     ``--full`` (which also turns on rematerialisation per layer, or per
     super-layer for the hybrid, as the reference does).
@@ -34,10 +35,10 @@ from repro_torch.core import async_sim
 from repro_torch.core.protocol import SDFLBProtocol
 from repro_torch.data.datasets import make_federated_mnist, synthetic_tokens
 
-# the archs this launcher trains: the LLMs (dense decoders and the
-# hybrid) and the CNN
+# the archs this launcher trains: the LLMs (dense and MoE decoders and
+# the hybrid) and the CNN
 TRAIN_ARCHS = [a for a in ARCH_IDS if get_config(a).family
-               in ("dense", "hybrid")] + ["paper-net"]
+               in ("dense", "moe", "hybrid")] + ["paper-net"]
 
 
 def build_protocol(args):

@@ -1,12 +1,13 @@
-"""Model API of the port — the CNN, dense-decoder and hybrid branches of
-``repro.models.api``.
+"""Model API of the port — the CNN, dense- and MoE-decoder and hybrid
+branches of ``repro.models.api``.
 
     init(cfg, gen, device)                     -> params (flat dict)
     loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)
-                                                  [cnn, dense, hybrid]
+                                                  [cnn, dense, moe, hybrid]
     lm_loss_fn(cfg)(params, batch)             -> (loss, metrics)
-                                                  [dense, hybrid]
-    forward(params, cfg, batch)                -> (logits, aux) [dense, hybrid]
+                                                  [dense, moe, hybrid]
+    forward(params, cfg, batch)                -> (logits, aux)
+                                                  [dense, moe, hybrid]
     prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
     cache_shape(cfg, batch, seq), make_cache(cfg, batch, seq, device)
     decode_step(params, cfg, cache, tokens, cur_index) -> (logits, cache)
@@ -14,9 +15,10 @@
 CNN batches are dicts ``{images (W, B, 28, 28, 1), labels (W, B)}`` with
 the worker dimension first; a single model is the W = 1 case (``stack``).
 Decoder batches are ``{tokens (B, S)}`` (``{tokens, labels}``, each
-(W, B, S), for ``loss_fn``). The dense family runs through
-``transformer``, the hybrid (zamba2) through ``hybrid``; the other LLM
-families wait for their slices (``transformer.check_ported`` raises).
+(W, B, S), for ``loss_fn``). The dense and MoE families run through
+``transformer`` (the MoE layers through ``moe``, whose aux loss the LM
+loss adds and reports), the hybrid (zamba2) through ``hybrid``; the other
+LLM families wait for their slices (``transformer.check_ported`` raises).
 The hybrid trains through K4 and its backward (``kernels.ssd_scan``).
 """
 from __future__ import annotations
@@ -160,8 +162,9 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
                kv_chunk: int = 1024):
     """One decoder's causal-LM loss, the LM branch of the reference's
     ``loss_fn``: f(params, {tokens (B, S), labels (B, S)}) -> (loss (),
-    {"loss", "aux"}), for the dense decoders and the hybrid (head
-    ``lm_head``, offset 0)."""
+    {"loss", "aux"}), for the dense and MoE decoders and the hybrid (head
+    ``lm_head``, offset 0). ``aux`` is the MoE layers' load-balance and
+    z-loss, summed over the layers (0 for the other families)."""
     hybrid = cfg.family == "hybrid"
     if not hybrid:
         TF.check_ported(cfg)

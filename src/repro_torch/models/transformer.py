@@ -10,8 +10,11 @@ loops over the layers in Python, on views of the stacked leaves taken
 once a forward (``unbind``, whose backward stacks the layers' gradients in
 one copy). ``remat`` recomputes each layer in backward
 (``torch.utils.checkpoint``), the reference's ``jax.checkpoint`` on its
-scanned body. The MoE and VLM families and MLA attention wait for their
-slices.
+scanned body; a checkpointed layer returns its MoE aux loss beside x. The
+MoE layers (``models/moe.py``) replace the SwiGLU MLP under ``moe.``
+(``layers.moe.w_gate`` is (L, E, d, f), ``layers.moe.shared.gate``
+(L, d, 1)); the aux loss is summed over the layers in f32, in layer
+order. The VLM family and MLA attention wait for their slices.
 
 The decode cache is a dict of two stacked (L, B, S, KV, hd) tensors, written
 in place: ``decoder_decode_step`` fills slot ``cur_index`` of each layer and
@@ -27,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 Params = Dict[str, torch.Tensor]
 LAYERS = "layers."
@@ -37,10 +41,10 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (the port runs the "
-            f"dense and hybrid families)")
+            f"dense, moe and hybrid families)")
     if cfg.attn_type not in ("gqa", "swa"):
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} is not ported yet")
@@ -56,14 +60,20 @@ def _window(cfg: ModelConfig) -> int:
 
 def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig,
                        device) -> Params:
-    """One layer's params, flat: ``attn.wq`` … ``mlp.w_down``, norms."""
+    """One layer's params, flat: ``attn.wq`` … ``mlp.w_down`` (or
+    ``moe.router`` … ``moe.shared.gate``), norms."""
     dt = _dtype(cfg)
     attn = L.init_gqa(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                       cfg.resolved_head_dim, dt, device)
-    mlp = L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, device)
+    if cfg.moe.enabled:
+        mlp = MOE.init_moe(gen, cfg.d_model, cfg.moe, dt, device)
+        group = "moe"
+    else:
+        mlp = L.init_swiglu(gen, cfg.d_model, cfg.d_ff, dt, device)
+        group = "mlp"
     ones = torch.ones((cfg.d_model,), dtype=dt, device=device)
     params = {f"attn.{k}": v for k, v in attn.items()}
-    params.update({f"mlp.{k}": v for k, v in mlp.items()})
+    params.update({f"{group}.{k}": v for k, v in mlp.items()})
     params.update({"norm1": ones, "norm2": ones.clone()})
     return params
 
@@ -73,11 +83,15 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     dt = _dtype(cfg)
     params = {"embed": L.embed_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                                     device)}
-    per_layer = [init_decoder_layer(gen, cfg, device)
-                 for _ in range(cfg.num_layers)]
-    for k in per_layer[0]:
-        params[LAYERS + k] = torch.stack([p[k] for p in per_layer])
-    del per_layer
+    # the stacked leaves are filled one layer at a time, so the init never
+    # holds a second copy of the layers
+    for n in range(cfg.num_layers):
+        for k, leaf in init_decoder_layer(gen, cfg, device).items():
+            if LAYERS + k not in params:
+                params[LAYERS + k] = torch.empty(
+                    (cfg.num_layers,) + leaf.shape, dtype=leaf.dtype,
+                    device=device)
+            params[LAYERS + k][n] = leaf
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt, device=device)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, (cfg.d_model, cfg.vocab_size),
@@ -87,14 +101,17 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 def all_layer_params(params: Params, cfg: ModelConfig) -> List[Dict]:
     """Every layer's params as views, {"attn": {...}, "mlp": {...},
-    "norm1", "norm2"} a layer, from one ``unbind`` of each stacked leaf."""
-    out = [{"attn": {}, "mlp": {}} for _ in range(cfg.num_layers)]
+    "norm1", "norm2"} a layer (``"moe": {..., "shared": {...}}`` in place
+    of ``mlp``), from one ``unbind`` of each stacked leaf."""
+    out = [{} for _ in range(cfg.num_layers)]
     for k, v in params.items():
         if not k.startswith(LAYERS):
             continue
-        group, _, name = k[len(LAYERS):].rpartition(".")
+        *groups, name = k[len(LAYERS):].split(".")
         for lp, t in zip(out, v.unbind(0)):
-            (lp[group] if group else lp)[name] = t
+            for g in groups:
+                lp = lp.setdefault(g, {})
+            lp[name] = t
     return out
 
 
@@ -113,9 +130,11 @@ def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
 
-def _block(lp, cfg: ModelConfig, x: torch.Tensor, **attn_kw):
-    """One decoder layer: pre-norm attention and SwiGLU, with residuals.
-    Returns (x, the ``kv`` of ``apply_gqa``)."""
+def _block(lp, cfg: ModelConfig, x: torch.Tensor, moe_cf: float = 0.0,
+           **attn_kw):
+    """One decoder layer: pre-norm attention and SwiGLU (or MoE at capacity
+    factor ``moe_cf``, 0 for the config's), with residuals. Returns (x,
+    the ``kv`` of ``apply_gqa``, the MoE aux loss or None)."""
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
     a, kv = L.apply_gqa(lp["attn"], h, num_heads=cfg.num_heads,
                         num_kv_heads=cfg.num_kv_heads,
@@ -124,12 +143,18 @@ def _block(lp, cfg: ModelConfig, x: torch.Tensor, **attn_kw):
                         **attn_kw)
     x = x + a
     h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
-    return x + L.apply_swiglu(lp["mlp"], h), kv
+    if cfg.moe.enabled:
+        m, aux = MOE.apply_moe(lp["moe"], h, cfg.moe,
+                               capacity_factor=moe_cf)
+        return x + m, kv, aux
+    return x + L.apply_swiglu(lp["mlp"], h), kv, None
 
 
 def _remat_block(lp, cfg: ModelConfig, x: torch.Tensor, positions,
-                 kv_chunk: int) -> torch.Tensor:
-    return _block(lp, cfg, x, positions=positions, kv_chunk=kv_chunk)[0]
+                 kv_chunk: int):
+    """(x, aux) of ``_block``: a checkpointed layer returns its aux loss."""
+    x, _, aux = _block(lp, cfg, x, positions=positions, kv_chunk=kv_chunk)
+    return x, aux
 
 
 def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -151,21 +176,26 @@ def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache = None
     if prefill:
         cache = make_decoder_cache(cfg, B, prefill_cache_len, x.device)
+    aux = 0.0
     for layer, lp in enumerate(all_layer_params(params, cfg)):
         if remat:
-            x = checkpoint(_remat_block, lp, cfg, x, positions, kv_chunk,
-                           use_reentrant=False, preserve_rng_state=False)
-            continue
-        x, kv = _block(lp, cfg, x, positions=positions, kv_chunk=kv_chunk)
-        if prefill:
-            cache["k"][layer, :, :S] = kv["k"]
-            cache["v"][layer, :, :S] = kv["v"]
+            x, aux_l = checkpoint(_remat_block, lp, cfg, x, positions,
+                                  kv_chunk, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            x, kv, aux_l = _block(lp, cfg, x, positions=positions,
+                                  kv_chunk=kv_chunk)
+            if prefill:
+                cache["k"][layer, :, :S] = kv["k"]
+                cache["v"][layer, :, :S] = kv["v"]
+        if aux_l is not None:
+            aux = aux + aux_l
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if prefill:
         return x[:, -1:, :] @ _head(params, cfg), cache
     if return_hidden:
-        return x, 0.0
-    return x @ _head(params, cfg), 0.0
+        return x, aux
+    return x @ _head(params, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +226,8 @@ def decoder_decode_step(params: Params, cfg: ModelConfig, cache: Params,
     positions = torch.full((1,), cur_index, device=x.device)
     for layer, lp in enumerate(all_layer_params(params, cfg)):
         layer_cache = {"k": cache["k"][layer], "v": cache["v"][layer]}
-        x, _ = _block(lp, cfg, x, positions=positions, cache=layer_cache,
-                      cur_index=cur_index)
+        x, _, _ = _block(lp, cfg, x, moe_cf=2 * cfg.moe.capacity_factor,
+                         positions=positions, cache=layer_cache,
+                         cur_index=cur_index)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ _head(params, cfg), cache

@@ -749,3 +749,106 @@ def test_hybrid_protocol_inits_and_trains_on_card(cuda):
     assert K4.launches > before[0] and K4.bwd_launches > before[1]
     assert np.isfinite(rec.scores).all() and np.isfinite(rec.losses).all()
     proto.finalize()
+
+
+def _moe_case(dtype, dev, seed=0):
+    """A small MoE layer (d 64, 8 experts top-2, one shared expert, cf 1.0)
+    and its input: the second half of each row repeats the first, so equal
+    routing weights meet at the capacity boundary and tokens drop."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+    cfg = MoEConfig(num_experts=8, top_k=2, d_ff_expert=96,
+                    num_shared_experts=1, d_ff_shared=64, capacity_factor=1.0)
+    gen = torch.Generator().manual_seed(seed)
+    p = moe.init_moe(gen, 64, cfg, getattr(torch, dtype), "cpu")
+    x = torch.randn((2, 96, 64), generator=gen).to(getattr(torch, dtype))
+    x[:, 48:] = x[:, :48]
+    dout = torch.randn((2, 96, 64), generator=gen)
+    return cfg, {k: v.to(dev) for k, v in p.items()}, x.to(dev), dout.to(dev)
+
+
+def _moe_fwd_bwd(cfg, p, x, dout):
+    """The gather path's output, aux loss, and the gradients of
+    sum(out · dout) + aux with respect to x and every param."""
+    from repro_torch.models import moe
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    x = x.detach().clone().requires_grad_(True)
+    out, aux = moe.apply_moe(p, x, cfg)
+    grads = torch.autograd.grad((out.float() * dout).sum() + aux,
+                                [x, *p.values()])
+    return [out.detach(), aux.detach(), *grads], list(p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_matches_cpu_on_card(cuda, dtype):
+    """The MoE layer on the card against the same layer on the CPU from the
+    same weights and inputs: the same experts and dropped tokens, outputs
+    and gradients within 1e-4 (f32) or two bf16 steps (bf16) of each
+    tensor's largest value."""
+    from repro_torch.models import moe
+    cfg, p, x, dout = _moe_case(dtype, cuda)
+    plans = []
+    for dev in (cuda, torch.device("cpu")):
+        xf = x.to(dev).reshape(-1, 64)
+        probs, _ = moe._router_probs({"router": p["router"].to(dev)}, xf, cfg)
+        w, idx = moe._topk_weights(probs, cfg.top_k)
+        plans.append([t.cpu() for t in moe._routes(w, idx, moe.capacity(
+            cfg, xf.shape[0], cfg.capacity_factor))])
+    for a, b in zip(*plans):
+        assert torch.equal(a, b)
+    assert not plans[0][3].all()                 # the capacity drops tokens
+    got, names = _moe_fwd_bwd(cfg, p, x, dout)
+    want, _ = _moe_fwd_bwd(cfg, {k: v.cpu() for k, v in p.items()}, x.cpu(),
+                           dout.cpu())
+    rtol = 1e-4 if dtype == "float32" else 2.0 ** -7
+    for name, a, b in zip(["out", "aux", "x", *names], got, want):
+        a, b = a.cpu().float(), b.float()
+        assert torch.isfinite(a).all(), name
+        assert (a - b).abs().max() <= rtol * b.abs().max().clamp_min(1e-6), \
+            name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_is_bitwise_deterministic_on_card(cuda, dtype):
+    """Without ``torch.use_deterministic_algorithms``, three runs of the MoE
+    layer's forward and backward give the same bits: the combine and the
+    dispatch's backward add in a fixed order, with no float atomics."""
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg, p, x, dout = _moe_case(dtype, cuda, seed=1)
+    runs = [_moe_fwd_bwd(cfg, p, x, dout)[0] for _ in range(3)]
+    for again in runs[1:]:
+        for a, b in zip(runs[0], again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_moe_protocol_inits_and_trains_on_card(cuda):
+    """``SDFLBProtocol`` over qwen2-moe-a2.7b's smoke config (shared
+    experts) starts on the card with the CPU's weights bit for bit, takes
+    the per-leaf trust path (no kernel launch) and trains one sync round
+    to finite scores and losses."""
+    from repro_torch.configs.base import FederationConfig, TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.protocol import SDFLBProtocol
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api
+    cfg = get_smoke_config("qwen2-moe-a2.7b")
+    fed = FederationConfig(num_clusters=2, workers_per_cluster=2)
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, grad_clip=1.0)
+    proto = SDFLBProtocol(cfg, fed, tc, use_blockchain=False, seed=0,
+                          device=cuda)
+    cpu = api.init(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert set(cpu) == set(proto.global_params)
+    for k, v in cpu.items():
+        assert proto.global_params[k].device.type == "cuda"
+        assert torch.equal(proto.global_params[k].cpu(), v), k
+    wrappers = (trust_score.trust_score_stats, trust_agg.trust_agg,
+                fused_round.fused_async_agg)
+    before = [f.launches for f in wrappers]
+    rec = proto.run_round(synthetic_tokens(4, 2, 128, cfg.vocab_size, seed=0))
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before
+    assert np.isfinite(rec.scores).all() and np.isfinite(rec.losses).all()
+    proto.finalize()

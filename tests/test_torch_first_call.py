@@ -133,6 +133,35 @@ class _AtenOps(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+class _AtenCalls(TorchDispatchMode):
+    """Records every aten op's name with its arguments."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.calls.append((func.overloadpacket.__name__, args,
+                           kwargs or {}))
+        return func(*args, **(kwargs or {}))
+
+    def float_adds(self):
+        """The ops that add floats into one place in an order the card does
+        not fix: index_add, index_put with accumulate, scatter_add and
+        scatter_reduce with a sum (or mean)."""
+        bad = []
+        for op, args, kw in self.calls:
+            acc = kw.get("accumulate", len(args) > 3 and args[3])
+            red = kw.get("reduce", args[4] if len(args) > 4 else None)
+            if (op.startswith("index_add") or op.startswith("scatter_add")
+                    or (op.startswith(("index_put", "_index_put_impl"))
+                        and acc)
+                    or (op.startswith("scatter_reduce")
+                        and red in ("sum", "mean"))):
+                bad.append(op)
+        return bad
+
+
 def _enters_vml(op, dtype):
     if op not in MKL_VML or not dtype.is_floating_point:
         return False
@@ -182,9 +211,10 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
     """No CPU plain path computes exp, log, sqrt, tanh or erf through an op
     that MKL's vector math library serves: the kernels' plain versions, the
     prefill and decode attention, the Mamba2 decode step, the trust
-    scores, and training: the LLM loss with its backward (a dense decoder
-    and the zamba2 hybrid, through K4's plain backward), the attention's
-    chunked backward, and the clipped AdamW step."""
+    scores, and training: the LLM loss with its backward (a dense decoder,
+    an MoE decoder and the zamba2 hybrid, through K4's plain backward), the
+    attention's chunked backward, and the clipped AdamW step; and the MoE
+    decoder's prefill and decode."""
     from repro_torch.configs.base import FederationConfig, TrainConfig
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.core import trust
@@ -216,6 +246,21 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
         loss, _ = api.lm_loss_fn(cfg, remat=True, kv_chunk=32)(
             p, {"tokens": toks, "labels": toks})
         torch.autograd.grad(loss, list(p.values()))
+
+    mcfg = get_smoke_config("qwen2-moe-a2.7b").replace(dtype="float32")
+    m_params = api.init(mcfg, torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
+
+    def moe_loss_and_grad():
+        p = {k: v.requires_grad_(True) for k, v in m_params.items()}
+        loss, _ = api.lm_loss_fn(mcfg, remat=True)(
+            p, {"tokens": toks, "labels": toks})
+        torch.autograd.grad(loss, list(p.values()))
+
+    def moe_decode():
+        with torch.no_grad():
+            _, cache = api.prefill(m_params, mcfg, {"tokens": toks}, 65)
+            api.decode_step(m_params, mcfg, cache, toks[:, :1], 64)
 
     zcfg = get_smoke_config("zamba2-7b").replace(dtype="float32")
     z_params = api.init(zcfg, torch.Generator().manual_seed(0),
@@ -263,6 +308,8 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
             stats, FederationConfig()),
         "lm_loss_and_grad": lm_loss_and_grad,
         "hybrid_loss_and_grad": hybrid_loss_and_grad,
+        "moe_loss_and_grad": moe_loss_and_grad,
+        "moe_decode": moe_decode,
         "blocked_attention_backward": attention_backward,
         "adamw_update": adamw_step,
     }
@@ -273,3 +320,43 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
         bad = sorted((op, str(dt)) for op, dt in rec.ops
                      if _enters_vml(op, dt))
         assert not bad, (name, bad)
+
+
+def test_moe_layer_adds_in_a_fixed_order():
+    """The MoE layer's forward and backward (gather path, shared experts,
+    ties and capacity drops, f32 and bf16) add no float through
+    index_add, index_put with accumulate, scatter_add or a summing
+    scatter_reduce: the ops whose CUDA versions add through atomics in an
+    order that changes from run to run. The recorder does see them in the
+    reference's direct translation (a scatter-add combine)."""
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models import moe
+
+    cfg = MoEConfig(num_experts=8, top_k=2, d_ff_expert=32,
+                    num_shared_experts=1, d_ff_shared=16, capacity_factor=1.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator().manual_seed(0)
+        p = {k: v.requires_grad_(True) for k, v in
+             moe.init_moe(gen, 16, cfg, dtype, "cpu").items()}
+        x = torch.randn((2, 32, 16), generator=gen).to(dtype)
+        x[:, 16:] = x[:, :16]                   # ties at the capacity
+        x.requires_grad_(True)
+        with _AtenCalls() as rec:
+            out, aux = moe.apply_moe(p, x, cfg)
+            (out.float().square().sum() + aux).backward()
+        ops = {op for op, _, _ in rec.calls}
+        assert {"sort", "index_select"} <= ops, ops
+        assert not rec.float_adds(), rec.float_adds()
+        assert torch.isfinite(x.grad).all()
+
+    with _AtenCalls() as rec:           # the control: a scatter-add combine
+        torch.zeros((4, 3)).index_add(0, torch.tensor([0, 0]),
+                                      torch.ones((2, 3)))
+        torch.zeros((4, 3)).index_put_((torch.tensor([1, 1]),),
+                                       torch.ones((2, 3)), accumulate=True)
+        torch.zeros(4).scatter_add(0, torch.tensor([2, 2]), torch.ones(2))
+        torch.zeros(4).scatter_reduce(0, torch.tensor([3, 3]),
+                                      torch.ones(2), "sum")
+        w = torch.ones((4, 3), requires_grad=True)
+        w[torch.tensor([0, 0])].sum().backward()
+    assert len(rec.float_adds()) == 5, rec.float_adds()

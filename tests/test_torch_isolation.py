@@ -50,6 +50,7 @@ VERBATIM = {
     "configs/base.py": (), "configs/paper_net.py": (),
     "configs/h2o_danube_1_8b.py": (), "configs/zamba2_7b.py": (),
     "configs/smollm_135m.py": (), "configs/yi_6b.py": (),
+    "configs/qwen2_moe_a2_7b.py": (), "configs/olmoe_1b_7b.py": (),
     "data/datasets.py": (), "chain/contract.py": (), "chain/proofs.py": (),
     "chain/ledger.py": (847,),
     "core/async_sim.py": (), "core/reputation.py": (),

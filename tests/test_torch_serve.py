@@ -363,7 +363,8 @@ def test_serve_cli_prints_the_reference_lines(capsys):
 
 
 def test_registry_holds_only_ported_archs():
-    assert ARCH_IDS == [ARCH, "smollm-135m", "yi-6b", "zamba2-7b"]
+    assert ARCH_IDS == [ARCH, "olmoe-1b-7b", "qwen2-moe-a2.7b",
+                        "smollm-135m", "yi-6b", "zamba2-7b"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.window) == (24, 2560, 32, 8, 80,
@@ -375,7 +376,7 @@ def test_registry_holds_only_ported_archs():
     assert (yi.num_layers, yi.d_model, yi.num_kv_heads, yi.rope_theta,
             yi.window) == (32, 4096, 4, 5_000_000.0, 0)
     with pytest.raises(KeyError):
-        get_config("qwen2-moe-a2.7b")
+        get_config("minicpm3-4b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
