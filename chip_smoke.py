@@ -64,7 +64,17 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   gentle gates; two launches bitwise equal and one kernel
                   launch a call (``one_kernel``); times at the serve shape
                   beside the bound (bytes, or flops on the bf16 tensor
-                  cores) and the bound on the ordinary f32 cores
+                  cores) and the bound on the ordinary f32 cores. Then K4's
+                  wide path (f32): xlstm-1.3b's prefill shape (B 4, S
+                  1024, H 4, dk 1024, dv 1025, chunk 256, per-head q and
+                  k, v's last column ones) with mLSTM's gates (forget
+                  bias 3, input gate up to e^10) and gentle ones, the
+                  smoke config's (dk 128, dv 129, chunk 64), an initial
+                  state, sizes off the kernels' tiles; the planted faults
+                  that apply (all but ``p_one_part``) must fail at the
+                  serve and smoke shapes; two calls bitwise equal, 4 calls
+                  8 kernel launches; times beside ``ssd_scan.bound`` with
+                  q and k per head
   zamba_parity    ``launch.serve.serve`` on the card against the same on the
                   CPU: zamba2-7b at full width cut to 3 layers (one
                   super-layer of 2 Mamba2 layers and the shared block, one
@@ -156,7 +166,7 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
   llm_round       smollm-135m at full size (30 layers, d 576, V 49,152,
                   bf16, D = 134,515,008) through ``launch/train.py
                   --full``: W = 8 in 2 clusters, batch 32, seq 128, AdamW,
-                  remat; 3 sync per-leaf rounds with the chain (round
+                  remat; 2 sync per-leaf rounds with the chain (round
                   walls, tokens/s, settle times, each IPFS put of the 269
                   MB model, peak memory) and 3 async ones without it (the
                   puts set a chained round's pace); the held-out loss
@@ -200,6 +210,20 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   three times without the deterministic flag, bitwise
                   equal; a same-seed one-round rerun with bitwise-equal
                   params and scores
+  xlstm_parity    ``launch.serve.serve`` on the card against the CPU:
+                  xlstm-1.3b at full width cut to one super-layer (7
+                  mLSTM blocks and the sLSTM block), batch 2, a 512-token
+                  prompt (two chunks), 4 greedy tokens, f32 and bf16 (bf16
+                  within PARITY_TOL plus the CPU's own bf16-vs-f32 gap);
+                  K4 must launch 7 times (its wide path), no other kernel
+  xlstm_serve     the fourth serve path: xlstm-1.3b at full size (48
+                  layers, seeded random weights, bf16) serving batch 4, a
+                  1024-token prompt and 32 tokens; K4 must launch 42
+                  times and no other kernel; a second same-seed run must
+                  emit the same tokens; prefill ms, decode ms a step
+                  against the floor (weights read and mLSTM states read
+                  and written once a step), peak memory; then one prefill
+                  and four decode steps under torch.profiler
 
 Then it prints the run's total wall with each phase's wall seconds, the
 card's ``nvidia-smi`` line, one
@@ -208,7 +232,8 @@ line (each kernel's launches on its paths, its error against the plain
 version, its time, the plain version's time, its bound and the time of a
 library call where one computes the same function: ``torch.mv`` for K2,
 ``scaled_dot_product_attention`` for K5; none for K1, K3, K4 and K4's
-backward, ``ssd_scan_bwd``), and last
+backward, ``ssd_scan_bwd``; K4's entry counts its calls on the zamba2 and
+xLSTM paths and carries the wide path's numbers under ``wide``), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without the last line; so does a machine without CUDA.
 """
@@ -277,6 +302,25 @@ SSD_CASES = [(SSD_SERVE, "model", False), (SSD_SERVE, "gentle", False),
              (dict(SSD_SERVE, S=128), "gentle", False),
              (dict(SSD_SERVE, S=512), "gentle", True),
              (dict(SSD_SERVE, S=512, per_head_qk=True), "gentle", True)]
+# K4's wide path (mLSTM's heads: dk = dh, dv = dh + 1, f32) at xlstm-1.3b's
+# prefill shape (its last 16-column tile holds one column), the smoke
+# config's (dh 128, chunk 64), a run from an initial state, and sizes that
+# are no multiple of the kernels' tiles; gates "mlstm" (a = log
+# sigmoid(3 + N(0, 1)), i = exp(clip(4 N(0, 1), -10, 10))) or "gentle"
+SSD_WIDE_SERVE = dict(B=4, S=1024, H=4, dk=1024, dv=1025, chunk=256)
+SSD_WIDE_SMOKE = dict(B=2, S=128, H=4, dk=128, dv=129, chunk=64)
+SSD_WIDE_CASES = [(SSD_WIDE_SERVE, "mlstm", False),
+                  (SSD_WIDE_SERVE, "gentle", False),
+                  (SSD_WIDE_SMOKE, "mlstm", False),
+                  (SSD_WIDE_SMOKE, "gentle", True),
+                  (dict(SSD_WIDE_SERVE, B=1, S=512), "mlstm", True),
+                  (dict(B=2, S=192, H=3, dk=200, dv=77, chunk=96), "gentle",
+                   True)]
+XLSTM = "xlstm-1.3b"
+XSERVE = dict(batch=4, prompt_len=1024, gen=32)   # prompt: 4 mLSTM chunks
+# one super-layer: 7 mLSTM blocks and the sLSTM block, at full width
+XPARITY_CUTS = {"num_layers": 8}
+XPARITY = dict(batch=2, prompt_len=512, gen=4, seed=3)
 # K4's backward at zamba2-7b's training shape (batch 4, seq 512: 4 chunks),
 # the smoke shape, one chunk, a run from an initial state with a nonzero
 # dh_final, and per-head q and k; the tolerance is ssd_scan.BWD_ATOL_REL
@@ -340,19 +384,20 @@ def time_ms(fn):
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
-def one_kernel(fn, name, calls=4):
-    """Check that ``calls`` calls of ``fn`` ran one device kernel each:
-    the profiler recorded ``calls`` runtime calls that put work on the
-    card, each a kernel launch (no copy or memset), and every device
-    activity it recorded is the kernel whose name holds ``name``. The
+def one_kernel(fn, name, calls=4, per_call=1):
+    """Check that ``calls`` calls of ``fn`` ran ``per_call`` device kernels
+    each: the profiler recorded ``calls * per_call`` runtime calls that put
+    work on the card, each a kernel launch (no copy or memset), and every
+    device activity it recorded is a kernel whose name holds ``name``. The
     device records alone cannot be counted: the profiler loses some of
     them (``_build.launch_records``)."""
     from repro_torch.kernels import _build
     enqueued, device = _build.launch_records(fn, calls)
-    check(len(enqueued) == calls and all("Launch" in n for n in enqueued)
+    check(len(enqueued) == calls * per_call
+          and all("Launch" in n for n in enqueued)
           and all(name in n for n in device),
           f"{name}: {calls} calls enqueued {enqueued} and ran {device}, "
-          f"expected one kernel each")
+          f"expected {per_call} kernel(s) each")
     return {"calls": calls, "launch_calls": len(enqueued),
             "device_records": len(device),
             "name": device[0] if device else None}
@@ -1114,21 +1159,122 @@ def ssd_case(K4, name, shape, gates, init, dtype, gen):
     return row
 
 
+def wide_inputs(B, S, H, dk, dv, gates, init, gen):
+    """mLSTM's operands for K4's wide path: per-head f32 q, k ~ N(0, 1/dk),
+    v (B, S, H, dv) whose last column is ones (the normalizer's), gates
+    "mlstm" (a = log sigmoid(3 + N(0, 1)): the forget gate's bias 3;
+    i = exp(clip(4 N(0, 1), -10, 10)): the input gate up to e^10) or
+    "gentle" (a ~ U(-0.02, 0), i = softplus(N(0, 1)))."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    q = torch.randn((B, S, H, dk), generator=gen, device=dev) * dk ** -0.5
+    k = torch.randn((B, S, H, dk), generator=gen, device=dev) * dk ** -0.5
+    v = torch.randn((B, S, H, dv), generator=gen, device=dev)
+    v[..., -1] = 1.0
+    if gates == "mlstm":
+        a = F.logsigmoid(3.0 + torch.randn((B, S, H), generator=gen,
+                                           device=dev))
+        i = torch.exp(torch.clamp(4.0 * torch.randn(
+            (B, S, H), generator=gen, device=dev), -10.0, 10.0))
+    else:
+        a = -0.02 * torch.rand((B, S, H), generator=gen, device=dev)
+        i = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    h0 = (torch.randn((B, H, dk, dv), generator=gen, device=dev) if init
+          else None)
+    return q, k, v, a, i, h0
+
+
+def ssd_wide_case(K4, name, shape, gates, init, gen):
+    """K4's wide path against its plain version's result on the same
+    inputs (both f32), y and the final state within ``K4.excess``. With
+    gentle gates at the serve and smoke shapes the plain version with each
+    planted fault that applies (all but ``p_one_part``: the wide path
+    splits nothing into bf16 parts) must fail that check; at the serve
+    shape with the model's gates two calls must give the same bits, 4
+    calls must make 8 kernel launches (``K4.WIDE_LAUNCHES`` a call) and
+    nothing else, and the path and the plain version are timed beside the
+    bound."""
+    B, S, H, dk, dv, chunk = (shape[x] for x in ("B", "S", "H", "dk", "dv",
+                                                 "chunk"))
+    check(K4.is_wide(dk, dv, chunk), f"{shape} is not a wide shape")
+    q, k, v, a, i, h0 = wide_inputs(B, S, H, dk, dv, gates, init, gen)
+    before = K4.ssd_scan.launches
+    y, h = K4.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    check(K4.ssd_scan.launches == before + 1, "a wide call counts once")
+    y32, h32 = K4.ssd_scan_ref(q, k, v, a, i, chunk=chunk, initial_state=h0)
+    check(y.shape == v.shape and y.dtype == torch.float32
+          and h.shape == (B, H, dk, dv) and h.dtype == torch.float32)
+    check(torch.isfinite(y).all() and torch.isfinite(h).all())
+    excess = {"y": K4.excess(y, y32), "state": K4.excess(h, h32)}
+    row = {**shape, "gates": gates, "initial_state": init,
+           "dtype": "float32",
+           "max_abs_err": float((y - y32).abs().max()),
+           "state_max_abs_err": float((h - h32).abs().max()),
+           "y_absmax": float(y32.abs().max()),
+           "state_absmax": float(h32.abs().max()), "excess": excess}
+    if max(excess.values()) > 0:
+        raise AssertionError(f"ssd_scan wide {row}: beyond the tolerance")
+    if shape in (SSD_WIDE_SERVE, SSD_WIDE_SMOKE) and gates == "gentle":
+        faults = {}
+        for fault in K4.FAULTS:
+            fy, fh = K4.ssd_scan_ref(q, k, v, a, i, chunk=chunk,
+                                     initial_state=h0, fault=fault)
+            faults[fault] = {"y_excess": K4.excess(fy, y32),
+                             "state_excess": K4.excess(fh, h32)}
+            check(fault == "p_one_part" or max(faults[fault].values()) > 0,
+                  f"K4's tolerance passes a planted fault at a wide "
+                  f"shape: {fault}")
+            del fy, fh
+        row["planted_faults"] = faults
+    if shape is SSD_WIDE_SERVE and gates == "mlstm":
+        y2, h2 = K4.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
+        row["bitwise_equal_rerun"] = bool(torch.equal(y, y2)
+                                          and torch.equal(h, h2))
+        check(row["bitwise_equal_rerun"], "two wide K4 calls differ")
+        del y2, h2
+        row["device_kernel"] = one_kernel(
+            lambda: K4.ssd_scan(q, k, v, a, i, chunk=chunk,
+                                initial_state=h0), "ssd_wide",
+            per_call=K4.WIDE_LAUNCHES)
+        bw, f32_peak = peaks(name)
+        nbytes = K4.hbm_bytes(B, S, H, dk, dv, 4,
+                              qk_per_head=True)["minimum"]
+        fl = K4.flops(B, S, H, dk, dv, chunk)
+        row.update(K4.bound(B, S, H, dk, dv, chunk, 4, bw, tensor_peak(name),
+                            f32_peak, qk_per_head=True))
+        row.update({
+            "ms": time_ms(lambda: K4.ssd_scan(q, k, v, a, i, chunk=chunk)),
+            "plain_ms": time_ms(lambda: K4.ssd_scan_ref(q, k, v, a, i,
+                                                        chunk=chunk)),
+            "library_ms": None, "min_bytes": nbytes, "flops": fl,
+            "launches_per_call": K4.WIDE_LAUNCHES})
+        row["achieved_tflop_s"] = fl / row["ms"] / 1e9
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["share_of_f32_core_bound"] = row["f32_core_bound_ms"] / row["ms"]
+    del q, k, v, a, i, h0, y, h, y32, h32
+    torch.cuda.empty_cache()
+    return row
+
+
 def phase_ssd_kernel(name):
-    """K4 against ssd_scan_ref on the card; returns the row at the serve
-    shape (bf16, the model's gates) for the kernels line."""
+    """K4 against ssd_scan_ref on the card, the narrow kernel and the wide
+    path; returns the rows at the two serve shapes (narrow: bf16, the
+    model's gates; wide: the model's gates) for the kernels line."""
     from repro_torch.kernels import ssd_scan as K4
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [ssd_case(K4, name, shape, gates, init, dtype, gen)
              for dtype in ("float32", "bfloat16")
              for shape, gates, init in SSD_CASES]
+    wide = [ssd_wide_case(K4, name, shape, gates, init, gen)
+            for shape, gates, init in SSD_WIDE_CASES]
     emit({"phase": "ssd_kernel", "atol_rel": K4.ATOL_REL,
           "rtol_bf16": K4.RTOL[torch.bfloat16],
           "tolerance": "|kernel - plain_f32| <= atol_rel * max|plain_f32| "
                        "+ rtol * |plain_f32|, rtol 0 in f32 and for the "
-                       "state", "cases": cases})
-    return next(c for c in cases if c["dtype"] == "bfloat16"
-                and "ms" in c)
+                       "state", "cases": cases, "wide_cases": wide})
+    return (next(c for c in cases if c["dtype"] == "bfloat16"
+                 and "ms" in c), next(c for c in wide if "ms" in c))
 
 
 def phase_zamba_parity():
@@ -1732,13 +1878,16 @@ def phase_examples():
 LLM = "smollm-135m"
 # ``launch/train.py --arch smollm-135m --full``: W = 8 in 2 clusters, batch
 # 32, seq 128 (its defaults), AdamW lr 3e-4, clip 1.0, remat; 3 rounds a
-# run. Each round with the chain puts the 269 MB model to IPFS (as 538 MB
-# of f32, zlib on one host core: 105-128 s a put beside an NVIDIA H100
-# 80GB HBM3 at 700.00 W, PERF.md section 5), and a round waits for the
-# last one's block, so only the sync run and a one-round same-seed rerun
-# settle on the chain; the async run trains without it.
+# run, 2 for the chained sync run. Each round with the chain puts the 269
+# MB model to IPFS (as 538 MB of f32, zlib on one host core: 105-128 s a
+# put beside an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md section 5), and
+# a round waits for the last one's block, so only the sync run and a
+# one-round same-seed rerun settle on the chain (two rounds and not three
+# keep the whole script inside its time limit); the async run trains
+# without it.
 LLM_TRAIN = ["--arch", LLM, "--full", "--workers", "8", "--clusters", "2",
              "--batch", "32", "--seq", "128", "--rounds", "3"]
+LLM_SYNC = ["--rounds", "2"]
 LLM_ASYNC = ["--async", "--no-blockchain"]
 LLM_RERUN = ["--rounds", "1"]
 LLM_HELDOUT_SEED = 1000          # a batch no round trains on
@@ -2531,11 +2680,12 @@ def phase_llm_round(name):
     heldout = {k: v[0] for k, v in synthetic_tokens(
         8, 32, 128, cfg.vocab_size, seed=LLM_HELDOUT_SEED).items()}
     out = {"phase": "llm_round", "arch": LLM, "args": LLM_TRAIN,
-           "async_args": LLM_ASYNC, "rerun_args": LLM_RERUN,
+           "sync_args": LLM_SYNC, "async_args": LLM_ASYNC,
+           "rerun_args": LLM_RERUN,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "dtype": cfg.dtype}
     reset_counts()
-    proto, out["sync"], hashes = _llm_run([], heldout)
+    proto, out["sync"], hashes = _llm_run(LLM_SYNC, heldout)
     out["sync"]["launches"] = read_counts()
     _expect("llm_round sync", out["sync"]["launches"], _trust_launches(0, 0))
     D = api.param_count(proto.global_params)
@@ -3096,6 +3246,188 @@ def phase_moe_round(name):
     emit(out)
 
 
+def phase_xlstm_parity():
+    """xlstm-1.3b at full width cut to one super-layer (``XPARITY_CUTS``:
+    7 mLSTM blocks and the sLSTM block): ``serve`` on the card against the
+    CPU, f32 and bf16 (``XPARITY``: batch 2, a 512-token prompt of two
+    mLSTM chunks, 4 greedy tokens), the weights drawn once in f32 (bf16:
+    rounded, the gates' f32 leaves kept, the smoke config's dtypes); K4
+    launches 7 times (once an mLSTM prefill, its wide path) and no other
+    kernel. bf16 logits are held within PARITY_TOL plus what bf16 alone
+    moves the CPU's (the same weights in f32), as the MoE parity and the
+    CPU tests hold bf16 logits. Every number is emitted before the checks
+    fail the phase."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api, xlstm
+    cpu_dev = torch.device("cpu")
+    cfg32 = get_config(XLSTM).replace(dtype="float32", **XPARITY_CUTS)
+    n_m, n_super = xlstm._split_layers(cfg32)
+    out = {"phase": "xlstm_parity", "arch": XLSTM, "cuts": XPARITY_CUTS,
+           "mlstm_blocks": n_m * n_super, "slstm_blocks": n_super,
+           **XPARITY, "tol": PARITY_TOL}
+    t0 = time.monotonic()
+    p32 = api.init(cfg32, torch.Generator().manual_seed(3), cpu_dev)
+    out["cpu_init_s"] = time.monotonic() - t0
+    dts = {k: v.dtype for k, v in api.init(
+        get_smoke_config(XLSTM), torch.Generator().manual_seed(0),
+        cpu_dev).items()}
+    failures, cpu32 = [], None
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg32.replace(dtype=dtype)
+        params = p32 if dtype == "float32" else \
+            {k: v.to(dts[k]) for k, v in p32.items()}
+        t0 = time.monotonic()
+        cpu = serve(cfg, device="cpu", params=params, **XPARITY)
+        cpu_s = time.monotonic() - t0
+        reset_counts()
+        card = serve(cfg, device="cuda",
+                     params={k: v.cuda() for k, v in params.items()},
+                     **XPARITY)
+        launches = read_counts()
+        want = {k: 0 for k in launches}
+        want["ssd_scan"] = n_m * n_super
+        if launches != want:
+            failures.append(f"{dtype}: kernel launches {launches}, "
+                            f"expected {want}")
+        tol, gap = PARITY_TOL[dtype], None
+        if dtype == "bfloat16":
+            gap = _steps_gap(cpu, cpu32)
+            tol += gap
+        try:
+            r = parity_record(cpu, card, dtype, XPARITY["gen"], tol=tol)
+        except AssertionError as e:
+            failures.append(f"{dtype}: {e}")
+            r = {"failed": str(e)[:500]}
+        out[dtype] = {**r, "tol": tol, "cpu_bf16_vs_f32_gap": gap,
+                      "launches": launches, "cpu_serve_s": cpu_s,
+                      "card_prefill_ms": card.prefill_s * 1e3}
+        if dtype == "float32":
+            cpu32 = cpu
+        del params, card
+        _release()
+    del p32, cpu, cpu32
+    emit(out)
+    check(not failures, f"xlstm_parity: {failures}")
+
+
+def phase_xlstm_serve(name):
+    """xlstm-1.3b at full size (48 layers, seeded random weights, bf16)
+    serving ``XSERVE`` twice: K4 launches 42 times a prefill (its wide
+    path, once an mLSTM block) and no other kernel, the same-seed rerun
+    emits the same tokens; prefill and decode times, the decode floor (the
+    weights read once and the recurrent states read and written once a
+    step, over the card's memory rate), peak memory; then one prefill and
+    four decode steps under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api, xlstm
+    cfg = get_config(XLSTM)
+    n_m, n_super = xlstm._split_layers(cfg)
+    B, P, G = XSERVE["batch"], XSERVE["prompt_len"], XSERVE["gen"]
+    _release()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    r = serve(cfg, seed=0, **XSERVE)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in counts}
+    want["ssd_scan"] = n_m * n_super
+    if counts != want:
+        raise AssertionError(f"xlstm_serve: kernel launches {counts}, "
+                             f"expected {want}")
+    check(r.tokens.shape == (B, G) and r.logits.shape == (B, G,
+                                                          cfg.vocab_size))
+    check(torch.isfinite(r.logits).all())
+    check(bool(((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all()))
+    check(torch.equal(r.tokens, r.logits.float().argmax(-1)))
+    again = serve(cfg, seed=0, **XSERVE)
+    if not torch.equal(again.tokens, r.tokens):
+        raise AssertionError("same-seed xlstm serves emitted different "
+                             "tokens")
+    rec = {"phase": "xlstm_serve", "arch": XLSTM, **XSERVE,
+           "layers": cfg.num_layers, "super_layers": n_super,
+           "mlstm_per_super": n_m, "dtype": cfg.dtype,
+           "prefill_ms": r.prefill_s * 1e3,
+           "prefill_tok_s": B * P / r.prefill_s,
+           "decode_ms_per_step": r.decode_s * 1e3 / (G - 1),
+           "decode_tok_s": B * (G - 1) / r.decode_s,
+           "rerun_prefill_ms": again.prefill_s * 1e3,
+           "rerun_decode_ms_per_step": again.decode_s * 1e3 / (G - 1),
+           "memory_held_at_start": held,
+           "max_memory_allocated": peak, "launches": counts,
+           "identical_tokens": True,
+           "identical_logits": bool(torch.equal(again.logits, r.logits)),
+           "sample_tokens": r.tokens[0, :16].tolist()}
+    del r, again
+    _release()
+    dev = torch.device("cuda")
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(dev)
+    acts = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
+    with torch.inference_mode():
+        # where the prefill's device time goes: K4 against the rest. Its
+        # ~145k device activities come from the sLSTM loop; the device
+        # activity alone is recorded (the host's ops would triple what the
+        # profiler then sorts). The profiler may lose device records late
+        # in a long process (``_build.launch_records``), so they are
+        # reported, not checked.
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        t0 = time.monotonic()
+        logits, cache = api.prefill(params, cfg, {"tokens": prompts}, P + G)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        prof.stop()
+        pre = device_profile(prof, wall, ours=("ssd_wide",), label="k4_s")
+        pre["k4_share_of_busy"] = pre["k4_s"] / max(pre["device_busy_s"],
+                                                    1e-12)
+        rec["prefill_profile"] = pre
+        del prof
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+        api.decode_step(params, cfg, cache, tok, P)       # warm
+        torch.cuda.synchronize()
+        prof = profile(activities=acts)
+        prof.start()
+        t0 = time.monotonic()
+        for i in range(4):
+            api.decode_step(params, cfg, cache, tok, P + 1 + i)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        prof.stop()
+    dec = device_profile(prof, wall, ours=("ssd_wide",), label="k4_s")
+    dec["device_activities_per_step"] = dec["activities"] / 4
+    rec["decode_profile_4_steps"] = dec
+    nbytes = {key: v.numel() * v.element_size() for key, v in params.items()}
+    # a decode step reads every weight once and of the embedding only the
+    # B rows it looks up, and reads and writes every recurrent state once
+    weights = (sum(nbytes.values()) - nbytes["embed"]
+               + B * cfg.d_model * params["embed"].element_size())
+    state = sum(t.numel() * t.element_size()
+                for leaves in cache.values() for t in leaves.values())
+    bw, _ = peaks(name)
+    floor_ms = (weights + 2 * state) / bw * 1e3
+    rec.update({
+        "param_count": sum(v.numel() for v in params.values()),
+        "param_bytes": sum(nbytes.values()),
+        "weight_bytes_per_decode_step": weights,
+        "state_bytes": state,
+        "cache_bytes": {g: {n: t.numel() * t.element_size()
+                            for n, t in leaves.items()}
+                        for g, leaves in cache.items()},
+        "decode_floor_ms_per_step": floor_ms,
+        "decode_over_floor": rec["decode_ms_per_step"] / floor_ms})
+    del params, cache, logits
+    _release()
+    emit(rec)
+    return counts
+
+
 def _timed(walls, phase, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``walls[phase]``."""
     t0 = time.monotonic()
@@ -3142,7 +3474,7 @@ def main():
     swa_row = run("swa_kernel", phase_swa_kernel, name)
     run("serve_parity", phase_serve_parity)
     serve_counts = run("serve", phase_serve, name)
-    ssd_row = run("ssd_kernel", phase_ssd_kernel, name)
+    ssd_row, ssd_wide_row = run("ssd_kernel", phase_ssd_kernel, name)
     run("zamba_parity", phase_zamba_parity)
     zamba_counts = run("zamba_serve", phase_zamba_serve, name)
     ssd_bwd_row = run("ssd_bwd_kernel", phase_ssd_bwd_kernel, name)
@@ -3163,6 +3495,8 @@ def main():
     run("moe_parity", phase_moe_parity)
     run("moe_serve", phase_moe_serve, name)
     run("moe_round", phase_moe_round, name)
+    run("xlstm_parity", phase_xlstm_parity)
+    xlstm_counts = run("xlstm_serve", phase_xlstm_serve, name)
     for counts in new_paths:
         for k in ("trust_score", "trust_agg", "fused_async_agg"):
             launches[k] += counts[k]
@@ -3201,16 +3535,33 @@ def main():
     if round_counts["ssd_scan_bwd"] < 1:
         raise AssertionError("ssd_scan_bwd never launched on the zamba2 "
                              "round path")
+    if xlstm_counts["ssd_scan"] < 1:
+        raise AssertionError("ssd_scan never launched on the xlstm serve "
+                             "path")
+    # K4's calls on its paths: zamba2's serve and round (the narrow
+    # kernel) and xlstm's serve (the wide path, two launches a call); the
+    # top-level numbers are the narrow kernel's at zamba2's prefill, the
+    # wide path's at xlstm-1.3b's prefill under "wide"
     summary.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:29",
-        "launches": zamba_counts["ssd_scan"] + round_counts["ssd_scan"],
+        "launches": (zamba_counts["ssd_scan"] + round_counts["ssd_scan"]
+                     + xlstm_counts["ssd_scan"]),
         "max_abs_err": ssd_row["max_abs_err"], "ms": ssd_row["ms"],
         "plain_ms": ssd_row["plain_ms"], "bound_ms": ssd_row["bound_ms"],
         "bound_by": ssd_row["bound_by"], "library_ms": ssd_row["library_ms"],
         "shape": {k: ssd_row[k] for k in ("B", "S", "H", "dk", "dv", "chunk",
-                                           "gates", "dtype")}})
+                                           "gates", "dtype")},
+        "wide": {
+            "source": "src/repro_torch/csrc/ssd_scan_wide.cu",
+            "launches": xlstm_counts["ssd_scan"],
+            "launches_per_call": ssd_wide_row["launches_per_call"],
+            **{k: ssd_wide_row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "f32_core_bound_ms", "library_ms")},
+            "shape": {k: ssd_wide_row[k] for k in (
+                "B", "S", "H", "dk", "dv", "chunk", "gates", "dtype")}}})
     # K4's backward: no TPU kernel; the reference takes the VJP of its jnp
     # scan under autodiff
     summary.append({

@@ -2,8 +2,9 @@
 own CNN, the dense decoders h2o-danube-1.8b (sliding window), smollm-135m
 (tied embeddings) and yi-6b (GQA, RoPE theta 5e6), the MoE decoders
 qwen2-moe-a2.7b (60 routed experts top-4 and 4 shared ones) and
-olmoe-1b-7b (64 experts top-8), and zamba2-7b (the Mamba2 +
-shared-attention hybrid). The other LLM configs of
+olmoe-1b-7b (64 experts top-8), zamba2-7b (the Mamba2 +
+shared-attention hybrid) and xlstm-1.3b (the ssm family: mLSTM and sLSTM
+blocks, served only). The other LLM configs of
 ``repro.configs.registry`` wait for their slices."""
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ _ARCH_MODULES = {
     "paper-net":        "repro_torch.configs.paper_net",
     "qwen2-moe-a2.7b":  "repro_torch.configs.qwen2_moe_a2_7b",
     "smollm-135m":      "repro_torch.configs.smollm_135m",
+    "xlstm-1.3b":       "repro_torch.configs.xlstm_1_3b",
     "yi-6b":            "repro_torch.configs.yi_6b",
     "zamba2-7b":        "repro_torch.configs.zamba2_7b",
 }

@@ -6,7 +6,9 @@ reference's nested tree ``{"embed", "layers": {"attn": {"wq", ...}, ...},
 (``layers.attn.wq``), shapes and (in, out) layouts unchanged. A list in the
 tree (the hybrid's ``tail`` of Mamba2 layers) takes its indices as keys
 (``tail.0.mamba.w_x``); an empty one carries no leaf, and the hybrid's
-``tail`` comes back as ``[]``. numpy has no
+``tail`` comes back as ``[]``. xLSTM's stacked leaves keep their leading
+(n_super, n_m) or (n_super,) axes (``super.m.mlstm.w_up``,
+``super.s.slstm.r_gates``). numpy has no
 bfloat16 of its own: ``params_from_jax`` takes JAX's bf16 arrays bit for
 bit, and ``params_to_jax`` returns bf16 leaves as exact float32 arrays.
 
@@ -117,7 +119,7 @@ def params_to_jax(params: Dict[str, torch.Tensor]) -> Dict:
                 node = node.setdefault(name, {})
             node[leaf] = _array(v)
         out = _lists(out)
-        if "super" in out:                 # the hybrid, its tail empty or not
+        if "shared" in out:                # the hybrid, its tail empty or not
             out.setdefault("tail", [])
         return out
     p = {k: v.detach().cpu().numpy() for k, v in params.items()}

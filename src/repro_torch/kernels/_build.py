@@ -43,6 +43,7 @@ _SIGNATURES = {
     "repro_ssd_scan": [_P] * 6 + [_I] * 7 + [_L] * 9 + [_P] * 4,
     "repro_ssd_scan_bwd": [_P] * 8 + [_I] * 7 + [_L] * 9 + [_P] * 7,
     "repro_ssd_scan_bwd_design": [_I] * 4,
+    "repro_ssd_scan_wide": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_P] * 4,
 }
 
 _lock = threading.Lock()

@@ -38,6 +38,14 @@ wider heads and other chunks keep the first design's f32 FMAs, one block
 per (batch, head) (``bwd_design`` says which a call takes). The reference
 has no kernel here: it trains through XLA's autodiff of the jnp scan.
 ``bwd_bound`` gives the backward's least time.
+
+Wide heads (mLSTM: dk = dh, dv = dh + 1, chunks of up to 256; ``is_wide``)
+take a second path, ``csrc/ssd_scan_wide.cu``: f32 q, k and v, f32 FMAs on
+the ordinary cores, two launches a call (``WIDE_LAUNCHES``): the gated
+scores of every (batch, head, chunk) into a scratch buffer, then blocks
+that each own 16 columns of one (batch, head)'s state and walk the chunks.
+It has no backward yet (the xLSTM training slice); on the card a wide call
+whose gradient is wanted raises, as does a wide ``ssd_scan_bwd``.
 """
 from __future__ import annotations
 
@@ -48,8 +56,11 @@ import torch
 from repro_torch import mathfn
 from repro_torch.kernels import _build
 
-MAX_CHUNK = 128          # chunk positions the kernel takes
-MAX_D = 128              # dk and dv the kernel takes
+MAX_CHUNK = 128          # chunk positions the narrow kernel takes
+MAX_D = 128              # dk and dv the narrow kernel takes
+WIDE_MAX_CHUNK = 256     # chunk positions the wide path takes
+WIDE_MAX_DK = 1024       # dk the wide path takes (dv is free)
+WIDE_LAUNCHES = 2        # kernel launches a call of the wide path makes
 
 # The card check (``chip_smoke.py``, ``tests/test_torch_cuda.py``) holds
 # the kernel elementwise to the plain version's f32 result on the same
@@ -254,41 +265,79 @@ def _check(q, k, v, a, i, chunk, initial_state):
         raise ValueError("the operands lie on different devices")
 
 
+def is_wide(dk: int, dv: int, chunk: int) -> bool:
+    """Whether a call on the card at these sizes takes the wide path
+    (``csrc/ssd_scan_wide.cu``) rather than the narrow kernel
+    (``csrc/ssd_scan.cu``, dk, dv and chunk all <= 128)."""
+    return chunk > MAX_CHUNK or dk > MAX_D or dv > MAX_D
+
+
+_NO_WIDE_BWD = ("K4's backward at wide heads (dk or dv > 128 or chunk > 128, "
+                "mLSTM's) is not ported yet: it comes with the xLSTM "
+                "training slice. Call ssd_scan under torch.no_grad() on the "
+                "card, or on CPU tensors, whose plain version autograd "
+                "follows")
+
+
 def _check_card(q, k, v, chunk):
-    """What the CUDA kernel needs beyond the function's own domain."""
+    """What the CUDA kernels need beyond the function's own domain."""
     dk, dv = q.shape[-1], v.shape[-1]
     if not (q.dtype == k.dtype == v.dtype) or \
             q.dtype not in _build.KERNEL_DTYPES:
         raise TypeError(f"q, k, v dtypes {q.dtype}, {k.dtype}, {v.dtype}: "
                         f"the kernel takes one of float32 or bfloat16 for "
                         f"all three")
-    if chunk > MAX_CHUNK or dk > MAX_D or dv > MAX_D:
-        raise ValueError(f"chunk {chunk}, dk {dk}, dv {dv}: the kernel takes "
-                         f"chunk <= {MAX_CHUNK} and dk, dv <= {MAX_D}")
+    if is_wide(dk, dv, chunk):
+        if chunk > WIDE_MAX_CHUNK or dk > WIDE_MAX_DK:
+            raise ValueError(
+                f"chunk {chunk}, dk {dk}, dv {dv}: the kernel takes chunk "
+                f"<= {MAX_CHUNK} and dk, dv <= {MAX_D}, or (the wide path) "
+                f"chunk <= {WIDE_MAX_CHUNK} and dk <= {WIDE_MAX_DK}")
+        if q.dtype != torch.float32:
+            raise TypeError(f"q, k, v dtype {q.dtype}: the wide path (dk or "
+                            f"dv > {MAX_D} or chunk > {MAX_CHUNK}) takes "
+                            f"float32 only")
     if any(x.stride(3) != 1 for x in (q, k, v)):
         raise ValueError("q, k, v need contiguous rows (last stride 1)")
 
 
 def _launch_fwd(q, k, v, a, i, h0, chunk: int, with_states: bool):
-    """One K4 launch → (y, final state, and the state before each chunk
-    (B, nc, H, dk, dv) f32 when ``with_states``, else None)."""
+    """One K4 call on the card → (y, final state, and the state before each
+    chunk (B, nc, H, dk, dv) f32 when ``with_states``, else None): the
+    narrow kernel's one launch, or the wide path's two (``is_wide``), which
+    keeps no states and so raises when they are asked for."""
     _check_card(q, k, v, chunk)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
+    wide = is_wide(dk, dv, chunk)
+    if wide and with_states:
+        raise NotImplementedError(_NO_WIDE_BWD)
     dev = q.device
-    a32 = a.detach().to(torch.float32).contiguous()
-    i32 = i.detach().to(torch.float32).contiguous()
-    h0 = None if h0 is None else h0.detach().to(torch.float32).contiguous()
+    f32 = torch.float32
+    a32 = a.detach().to(f32).contiguous()
+    i32 = i.detach().to(f32).contiguous()
+    h0 = None if h0 is None else h0.detach().to(f32).contiguous()
     y = torch.empty((B, S, H, dv), dtype=v.dtype, device=dev)
-    h = torch.empty((B, H, dk, dv), dtype=torch.float32, device=dev)
-    states = torch.empty((B, S // chunk, H, dk, dv), dtype=torch.float32,
-                         device=dev) if with_states else None
-    _build.launch("repro_ssd_scan", dev, _build.ptr(q), _build.ptr(k),
-                  _build.ptr(v), _build.ptr(a32), _build.ptr(i32),
-                  _build.ptr(h0), int(v.dtype == torch.bfloat16), B, S, H,
-                  dk, dv, chunk, *q.stride()[:3], *k.stride()[:3],
-                  *v.stride()[:3], _build.ptr(y), _build.ptr(h),
-                  _build.ptr(states))
+    h = torch.empty((B, H, dk, dv), dtype=f32, device=dev)
+    ptrs = [_build.ptr(x) for x in (q, k, v, a32, i32, h0)]
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    states = None
+    if wide:
+        # the gated scores of every (b, h, chunk), written by the first
+        # launch and read by the second
+        scores = torch.empty((B, H, S // chunk, chunk, chunk), dtype=f32,
+                             device=dev)
+        _build.launch("repro_ssd_scan_wide", dev, *ptrs, B, S, H, dk, dv,
+                      chunk, *strides, _build.ptr(scores), _build.ptr(y),
+                      _build.ptr(h))
+    else:
+        if with_states:
+            states = torch.empty((B, S // chunk, H, dk, dv), dtype=f32,
+                                 device=dev)
+        _build.launch("repro_ssd_scan", dev, *ptrs,
+                      int(v.dtype == torch.bfloat16), B, S, H, dk, dv, chunk,
+                      *strides, _build.ptr(y), _build.ptr(h),
+                      _build.ptr(states))
     ssd_scan.launches += 1
     return y, h, states
 
@@ -328,17 +377,22 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              initial_state: Optional[torch.Tensor] = None):
     """q, k (B, S, H, dk), v (B, S, H, dv), gates a, i (B, S, H), S a
     multiple of ``chunk`` → (y (B, S, H, dv) in v's dtype, final state
-    (B, H, dk, dv) f32). On CUDA tensors this launches the kernel (counted
-    in ``.launches``): q, k, v float32 or bfloat16 alike, read through their
-    strides (a head stride of 0 reads one row for every head) with
-    contiguous rows; the gates and the initial state are read as
-    contiguous f32. On CPU tensors it returns the plain version.
+    (B, H, dk, dv) f32). On CUDA tensors this launches the kernel (each
+    call counted once in ``.launches``): q, k, v read through their strides
+    (a head stride of 0 reads one row for every head) with contiguous rows;
+    the gates and the initial state are read as contiguous f32. Which
+    kernel, by shape: dk, dv and chunk all <= 128 take the narrow kernel,
+    one launch, q, k, v float32 or bfloat16 alike; wider heads or chunks
+    (``is_wide``: mLSTM's dk = dh, dv = dh + 1) take the wide path, two
+    launches, float32 only, chunk <= 256 and dk <= 1024; anything else
+    raises. On CPU tensors it returns the plain version.
 
     When autograd records (grad mode on and an input that requires grad),
     the call goes through ``_SSDScan``: the forward also writes the state
     before each chunk, and the backward launches the backward kernel on
     the card (counted in ``.bwd_launches``) or runs the plain backward on
-    the CPU."""
+    the CPU. At wide shapes on the card it raises: that backward waits for
+    the xLSTM training slice."""
     chunk = int(chunk)
     _check(q, k, v, a, i, chunk, initial_state)
     if torch.is_grad_enabled() and any(
@@ -482,7 +536,8 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     before each chunk that the forward wrote; dq, dk and dv come in the
     inputs' dtype, da, di and dh0 in f32, and dq, dk per head even where q
     and k are head-stride-0 views. On CPU tensors it returns the plain
-    backward, ``ssd_scan_bwd_ref`` (all f32)."""
+    backward, ``ssd_scan_bwd_ref`` (all f32). At wide shapes (``is_wide``)
+    the card has no backward kernel yet and this raises."""
     chunk = int(chunk)
     _check(q, k, v, a, i, chunk, initial_state)
     B, S, H, dk = q.shape
@@ -493,6 +548,8 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
         return ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final, chunk=chunk,
                                 initial_state=initial_state, states=states)
     _check_card(q, k, v, chunk)
+    if is_wide(dk, dv, chunk):
+        raise NotImplementedError(_NO_WIDE_BWD)
     nc = S // chunk
     if states is None or tuple(states.shape) != (B, nc, H, dk, dv) or \
             states.dtype != torch.float32 or not states.is_contiguous():
@@ -534,12 +591,16 @@ def bwd_design(dtype: torch.dtype, dk: int, dv: int, chunk: int) -> int:
     return n
 
 
-def hbm_bytes(B: int, S: int, H: int, dk: int, dv: int,
-              itemsize: int) -> dict:
-    """HBM bytes one K4 call must move: q and k once (one row serves every
-    head, as in Mamba2), v once, the f32 gates once, y written once and
+def hbm_bytes(B: int, S: int, H: int, dk: int, dv: int, itemsize: int, *,
+              qk_per_head: bool = False,
+              qk_itemsize: Optional[int] = None) -> dict:
+    """HBM bytes one K4 call must move: q and k once, in their own item
+    size (``qk_itemsize``, default ``itemsize``): one row for all heads
+    where their head stride is 0 (Mamba2's B and C), a row per head with
+    ``qk_per_head`` (mLSTM); v once, the f32 gates once, y written once and
     the f32 final state written once."""
-    qk = 2 * B * S * dk * itemsize
+    qk = 2 * B * S * dk * (H if qk_per_head else 1) * \
+        (qk_itemsize or itemsize)
     vy = 2 * B * S * H * dv * itemsize
     gates = 2 * B * S * H * 4
     state = B * H * dk * dv * 4
@@ -558,13 +619,17 @@ def flops(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> int:
 
 def bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
           itemsize: int, hbm_bytes_per_s: float, tensor_flops_per_s: float,
-          f32_flops_per_s: float) -> dict:
+          f32_flops_per_s: float, *, qk_per_head: bool = False,
+          qk_itemsize: Optional[int] = None) -> dict:
     """The least time (ms) the card could take for one K4 call: the larger
-    of its minimum HBM bytes over the memory rate and its flops over the
-    bf16 tensor cores' dense rate, in either dtype (the kernel's products
-    run there). ``f32_core_bound_ms`` is the same work with the flops on
-    the ordinary f32 cores, the bound of the first, ordinary-core design."""
-    t_bytes = hbm_bytes(B, S, H, dk, dv, itemsize)["minimum"] / \
+    of its minimum HBM bytes (``hbm_bytes``, with q and k counted as
+    ``qk_per_head`` and ``qk_itemsize`` say) over the memory rate and its
+    flops over the bf16 tensor cores' dense rate, in either dtype (the
+    narrow kernel's products run there). ``f32_core_bound_ms`` is the same
+    work with the flops on the ordinary f32 cores, the bound of the
+    ordinary-core designs (the wide path's among them)."""
+    t_bytes = hbm_bytes(B, S, H, dk, dv, itemsize, qk_per_head=qk_per_head,
+                        qk_itemsize=qk_itemsize)["minimum"] / \
         hbm_bytes_per_s * 1e3
     fl = flops(B, S, H, dk, dv, chunk)
     t_ops = fl / tensor_flops_per_s * 1e3
@@ -574,16 +639,20 @@ def bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
 
 
 def bwd_hbm_bytes(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
-                  itemsize: int) -> dict:
-    """HBM bytes one backward call must move: q and k once (one row serves
-    every head, as in Mamba2), v and dy once, the f32 gates once, the f32
-    states before each chunk and dh_final once; dq and dk (per head), dv,
-    the f32 da and di and dh0 written once."""
-    qk = 2 * B * S * dk * itemsize
+                  itemsize: int, *, qk_per_head: bool = False,
+                  qk_itemsize: Optional[int] = None) -> dict:
+    """HBM bytes one backward call must move: q and k once (as in
+    ``hbm_bytes``: one row for all heads unless ``qk_per_head``, in
+    ``qk_itemsize``, default ``itemsize``), v and dy once, the f32 gates
+    once, the f32 states before each chunk and dh_final once; dq and dk (per
+    head, in q's item size), dv, the f32 da and di and dh0 written once."""
+    qk_size = qk_itemsize or itemsize
+    qk = 2 * B * S * dk * (H if qk_per_head else 1) * qk_size
     v_dy = 2 * B * S * H * dv * itemsize
     gates = 2 * B * S * H * 4
     states = (B * (S // chunk) * H + 2 * B * H) * dk * dv * 4
-    grads = B * S * H * (2 * dk + dv) * itemsize + 2 * B * S * H * 4
+    grads = B * S * H * (2 * dk * qk_size + dv * itemsize) + \
+        2 * B * S * H * 4
     return {"qk": qk, "v_dy": v_dy, "gates": gates, "states": states,
             "grads": grads, "minimum": qk + v_dy + gates + states + grads}
 
@@ -600,14 +669,18 @@ def bwd_flops(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> int:
 
 def bwd_bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
               itemsize: int, hbm_bytes_per_s: float,
-              tensor_flops_per_s: float, f32_flops_per_s: float) -> dict:
+              tensor_flops_per_s: float, f32_flops_per_s: float, *,
+              qk_per_head: bool = False,
+              qk_itemsize: Optional[int] = None) -> dict:
     """The least time (ms) the card could take for one backward call, as
     ``bound``: the larger of its minimum HBM bytes over the memory rate and
     its flops over the bf16 tensor cores' dense rate;
     ``f32_core_bound_ms`` with the flops on the ordinary f32 cores, where
     this kernel does them."""
-    t_bytes = bwd_hbm_bytes(B, S, H, dk, dv, chunk,
-                            itemsize)["minimum"] / hbm_bytes_per_s * 1e3
+    t_bytes = bwd_hbm_bytes(B, S, H, dk, dv, chunk, itemsize,
+                            qk_per_head=qk_per_head,
+                            qk_itemsize=qk_itemsize)["minimum"] / \
+        hbm_bytes_per_s * 1e3
     fl = bwd_flops(B, S, H, dk, dv, chunk)
     t_ops = fl / tensor_flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),

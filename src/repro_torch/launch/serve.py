@@ -1,11 +1,14 @@
 """Serving driver of the port: batched prefill + decode with the model's
-decode cache (stacked per-layer KV, or zamba2's Mamba2 states and shared
-K/V), on the card unless asked for the CPU.
+decode cache (stacked per-layer KV, zamba2's Mamba2 states and shared
+K/V, or xLSTM's mLSTM and sLSTM states), on the card unless asked for the
+CPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch h2o-danube-1.8b --batch 4 --prompt-len 64 --gen 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch zamba2-7b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch xlstm-1.3b --device cpu
 
 The flags and printed lines are those of ``repro.launch.serve``; without
 ``--full`` it runs the arch's smoke config. Weights and prompts come from
@@ -55,7 +58,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
         raise ValueError(f"gen = {gen}: serve generates at least one token")
     if cfg.ssm.enabled and prompt_len % min(cfg.ssm.chunk_size, prompt_len):
         raise ValueError(
-            f"prompt_len = {prompt_len}: the Mamba2 prefill scans whole "
+            f"prompt_len = {prompt_len}: the SSM prefill scans whole "
             f"chunks of min(chunk_size, prompt_len) = "
             f"{min(cfg.ssm.chunk_size, prompt_len)} positions; give a "
             f"multiple of {cfg.ssm.chunk_size} or a prompt shorter than it")

@@ -1,4 +1,4 @@
-"""exp, log and sqrt whose CPU results do not depend on MKL's state.
+"""exp, log, sqrt and tanh whose CPU results do not depend on MKL's state.
 
 On the CPU, PyTorch computes ``exp``, ``log`` and ``sqrt`` of float32
 tensors (and ``exp`` of float64 ones) with MKL's vector math library
@@ -51,3 +51,11 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     if x.device.type != "cpu":
         return torch.sqrt(x)
     return torch.sqrt(x.double()).to(x.dtype)
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh in x's dtype, computed in float64 on the CPU (whose tanh does
+    not enter MKL, where float32's does) and rounded once."""
+    if x.device.type != "cpu":
+        return torch.tanh(x)
+    return torch.tanh(x.double()).to(x.dtype)

@@ -1,5 +1,5 @@
-"""Model API of the port — the CNN, dense- and MoE-decoder and hybrid
-branches of ``repro.models.api``.
+"""Model API of the port — the CNN, dense- and MoE-decoder, hybrid and
+xLSTM (``ssm``) branches of ``repro.models.api``.
 
     init(cfg, gen, device)                     -> params (flat dict)
     loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)
@@ -7,7 +7,7 @@ branches of ``repro.models.api``.
     lm_loss_fn(cfg)(params, batch)             -> (loss, metrics)
                                                   [dense, moe, hybrid]
     forward(params, cfg, batch)                -> (logits, aux)
-                                                  [dense, moe, hybrid]
+                                                  [dense, moe, hybrid, ssm]
     prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
     cache_shape(cfg, batch, seq), make_cache(cfg, batch, seq, device)
     decode_step(params, cfg, cache, tokens, cur_index) -> (logits, cache)
@@ -17,9 +17,11 @@ the worker dimension first; a single model is the W = 1 case (``stack``).
 Decoder batches are ``{tokens (B, S)}`` (``{tokens, labels}``, each
 (W, B, S), for ``loss_fn``). The dense and MoE families run through
 ``transformer`` (the MoE layers through ``moe``, whose aux loss the LM
-loss adds and reports), the hybrid (zamba2) through ``hybrid``; the other
-LLM families wait for their slices (``transformer.check_ported`` raises).
-The hybrid trains through K4 and its backward (``kernels.ssd_scan``).
+loss adds and reports), the hybrid (zamba2) through ``hybrid``, xLSTM
+(the ``ssm`` family) through ``xlstm``; the other LLM families wait for
+their slices (``transformer.check_ported`` raises). The hybrid trains
+through K4 and its backward (``kernels.ssd_scan``); xLSTM is served only,
+and its losses raise until the xLSTM training slice.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn as CNN
 from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TF
+from repro_torch.models import xlstm as XL
 
 Params = Dict[str, torch.Tensor]
 
@@ -43,6 +46,8 @@ def init(cfg: ModelConfig, gen: torch.Generator,
         return CNN.init_cnn(gen, cfg, device)
     if cfg.family == "hybrid":
         return HY.init_hybrid(gen, cfg, device)
+    if cfg.family == "ssm":
+        return XL.init_xlstm(gen, cfg, device)
     return TF.init_decoder(gen, cfg, device)
 
 
@@ -50,6 +55,8 @@ def forward(params: Params, cfg: ModelConfig, batch):
     """Full forward producing logits (B, S, V) and the aux loss."""
     if cfg.family == "hybrid":
         return HY.hybrid_forward(params, cfg, batch["tokens"])
+    if cfg.family == "ssm":
+        return XL.xlstm_forward(params, cfg, batch["tokens"])
     return TF.decoder_forward(params, cfg, batch["tokens"])
 
 
@@ -60,6 +67,9 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache_len: int):
     if cfg.family == "hybrid":
         return HY.hybrid_forward(params, cfg, batch["tokens"],
                                  prefill_cache_len=cache_len)
+    if cfg.family == "ssm":
+        return XL.xlstm_forward(params, cfg, batch["tokens"],
+                                prefill_cache_len=cache_len)
     return TF.decoder_forward(params, cfg, batch["tokens"],
                               prefill_cache_len=cache_len)
 
@@ -67,14 +77,19 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache_len: int):
 def cache_shape(cfg: ModelConfig, batch: int, seq: int):
     if cfg.family == "hybrid":
         return HY.hybrid_cache_shape(cfg, batch, seq)
+    if cfg.family == "ssm":
+        return XL.xlstm_cache_shape(cfg, batch, seq)
     return TF.decoder_cache_shape(cfg, batch, seq)
 
 
 def make_cache(cfg: ModelConfig, batch: int, seq: int, device):
-    """Zeroed decode cache: recurrent ``ssm`` states in f32, KV and conv
-    leaves in ``cfg.dtype`` (the reference's ``api.cache_struct``)."""
+    """Zeroed decode cache: recurrent states (``ssm``, and xLSTM's ``c``,
+    ``n``, ``h``, ``m``) in f32, KV and conv leaves in ``cfg.dtype`` (the
+    reference's ``api.cache_struct``)."""
     if cfg.family == "hybrid":
         return HY.make_hybrid_cache(cfg, batch, seq, device)
+    if cfg.family == "ssm":
+        return XL.make_xlstm_cache(cfg, batch, device)
     return TF.make_decoder_cache(cfg, batch, seq, device)
 
 
@@ -82,6 +97,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache,
                 tokens: torch.Tensor, cur_index: int):
     if cfg.family == "hybrid":
         return HY.hybrid_decode_step(params, cfg, cache, tokens, cur_index)
+    if cfg.family == "ssm":
+        return XL.xlstm_decode_step(params, cfg, cache, tokens, cur_index)
     return TF.decoder_decode_step(params, cfg, cache, tokens, cur_index)
 
 
@@ -164,7 +181,13 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
     ``loss_fn``: f(params, {tokens (B, S), labels (B, S)}) -> (loss (),
     {"loss", "aux"}), for the dense and MoE decoders and the hybrid (head
     ``lm_head``, offset 0). ``aux`` is the MoE layers' load-balance and
-    z-loss, summed over the layers (0 for the other families)."""
+    z-loss, summed over the layers (0 for the other families). The ``ssm``
+    family (xLSTM) raises: its training waits for the xLSTM slice."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            "the xLSTM (ssm) loss is not ported yet: it comes with the "
+            "xLSTM training slice (the sLSTM scan's VJP and K4's backward "
+            "at mLSTM's heads); the port serves xLSTM only")
     hybrid = cfg.family == "hybrid"
     if not hybrid:
         TF.check_ported(cfg)

@@ -93,22 +93,6 @@ def init_hybrid(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     return params
 
 
-def _group(params: Params, prefix: str, index=()) -> Dict:
-    """The params under ``prefix`` as {"mamba": {...}, "norm": ...} (or
-    {"attn", "mlp", "norm1", "norm2"}), each leaf indexed by ``index``."""
-    out: Dict = {}
-    for key, v in params.items():
-        if not key.startswith(prefix):
-            continue
-        group, _, name = key[len(prefix):].rpartition(".")
-        leaf = v[index] if index else v
-        if group:
-            out.setdefault(group, {})[name] = leaf
-        else:
-            out[name] = leaf
-    return out
-
-
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -173,10 +157,11 @@ def hybrid_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     cache = None
     if prefill:
         cache = make_hybrid_cache(cfg, B, prefill_cache_len, x.device)
-    shared = _group(params, SHARED)
+    shared = L.param_group(params, SHARED)
     for n in range(n_super):
         if not prefill:
-            layers = [_group(params, SUPER, (n, j)) for j in range(k)]
+            layers = [L.param_group(params, SUPER, (n, j))
+                      for j in range(k)]
             if remat:
                 x = checkpoint(_super_layer, cfg, layers, shared, x,
                                positions, kv_chunk, use_reentrant=False,
@@ -185,13 +170,15 @@ def hybrid_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                 x = _super_layer(cfg, layers, shared, x, positions, kv_chunk)
             continue
         for j in range(k):
-            x, st = _mamba_step(cfg, _group(params, SUPER, (n, j)), x, True)
+            x, st = _mamba_step(cfg, L.param_group(params, SUPER, (n, j)),
+                                x, True)
             _write(cache["super_ssm"], (n, j), st)
         x, kv = _shared_fwd(cfg, shared, x, positions, kv_chunk=kv_chunk)
         for name in ("k", "v"):
             cache["shared_attn"][name][n, :, :S] = kv[name]
     for t in range(n_tail):
-        x, st = _mamba_step(cfg, _group(params, f"{TAIL}{t}."), x, prefill)
+        x, st = _mamba_step(cfg, L.param_group(params, f"{TAIL}{t}."), x,
+                            prefill)
         if prefill:
             _write(cache["tail_ssm"], t, st)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -247,16 +234,16 @@ def hybrid_decode_step(params: Params, cfg: ModelConfig, cache,
     k, n_super, n_tail = _split_layers(cfg)
     x = params["embed"][tokens]
     positions = torch.full((1,), cur_index, device=x.device)
-    shared = _group(params, SHARED)
+    shared = L.param_group(params, SHARED)
     for n in range(n_super):
         for j in range(k):
-            x = _mamba_decode(cfg, _group(params, SUPER, (n, j)), x,
+            x = _mamba_decode(cfg, L.param_group(params, SUPER, (n, j)), x,
                               cache["super_ssm"], (n, j))
         attn_cache = {name: t[n] for name, t in cache["shared_attn"].items()}
         x, _ = _shared_fwd(cfg, shared, x, positions, cache=attn_cache,
                            cur_index=cur_index)
     for t in range(n_tail):
-        x = _mamba_decode(cfg, _group(params, f"{TAIL}{t}."), x,
+        x = _mamba_decode(cfg, L.param_group(params, f"{TAIL}{t}."), x,
                           cache["tail_ssm"], t)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return x @ params["lm_head"], cache

@@ -47,6 +47,24 @@ def embed_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
             ).to(device=device, dtype=dtype)
 
 
+def param_group(params: Params, prefix: str, index=None) -> Dict:
+    """The leaves of a flat dict under ``prefix``, grouped by what is left
+    of the key before its last dot ({"mamba": {...}, "norm": ...}), each
+    leaf indexed by ``index`` (one block of stacked leaves) unless it is
+    None."""
+    out: Dict = {}
+    for key, v in params.items():
+        if not key.startswith(prefix):
+            continue
+        group, _, name = key[len(prefix):].rpartition(".")
+        leaf = v if index is None else v[index]
+        if group:
+            out.setdefault(group, {})[name] = leaf
+        else:
+            out[name] = leaf
+    return out
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------

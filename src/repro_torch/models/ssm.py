@@ -1,5 +1,5 @@
-"""State-space blocks of the port: the Mamba2 (SSD) subset of
-``repro.models.ssm`` that the zamba2 hybrid uses.
+"""State-space blocks of the port (``repro.models.ssm``): Mamba2 (SSD), which
+the zamba2 hybrid uses, and xLSTM's mLSTM and sLSTM blocks.
 
 The compute core is ``chunked_decay_attention``, chunkwise
 linear-attention-with-scalar-decay
@@ -13,8 +13,16 @@ the reference's chunked algorithm (``ssd_scan.ssd_scan_ref``, beside
 through K4's ``autograd.Function``, whose backward is the K4 backward
 kernel on the card and the plain backward on the CPU, where the reference
 takes XLA's autodiff of the jnp scan. Recurrences run in f32; block edges
-cast back, as in the reference. The mLSTM and sLSTM blocks of the
-reference's module wait for the xLSTM slice.
+cast back, as in the reference.
+
+mLSTM runs the same core at its own heads (dk = dh, dv = dh + 1: v with
+the normalizer's ones column appended), which on the card is K4's wide
+path; it hands K4 f32 q and k (upcast from the model dtype, exact), as the
+reference's core upcasts them. sLSTM is a strict scan over the sequence, a
+Python loop of eager ops here as ``lax.scan`` is in the reference; the
+reference has no kernel there. Only their serving paths are ported: the
+reference's hand-written VJP of the sLSTM scan (``_slstm_scan_bwd``) and
+K4's backward at mLSTM's heads wait for the xLSTM training slice.
 """
 from __future__ import annotations
 
@@ -175,3 +183,210 @@ def mamba2_state_shape(batch: int, d_model: int, ssm_cfg):
     return {"ssm": (batch, nheads, ssm_cfg.state_dim, MAMBA_HEAD_DIM),
             "conv_x": (batch, cw - 1, d_inner),
             "conv_bc": (batch, cw - 1, 2 * ssm_cfg.state_dim)}
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM) — matrix memory, exp gating, chunked via the SSD core
+# ---------------------------------------------------------------------------
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log σ(x) = min(x, 0) - log1p(e^-|x|), in float64 through
+    ``mathfn`` and rounded once to x's dtype (no op that MKL's vector math
+    serves on the CPU). log1p(e) is log(u) e / (u - 1) with u = 1 + e
+    (exact to rounding, and e itself where u rounds to 1)."""
+    x64 = x.double()
+    e = mathfn.exp(-x64.abs())
+    u = 1.0 + e
+    d = u - 1.0
+    log1p = torch.where(d == 0, e, mathfn.log(u) * e / torch.where(
+        d == 0, 1.0, d))
+    return (torch.clamp(x64, max=0.0) - log1p).to(x.dtype)
+
+
+def init_mlstm(gen: torch.Generator, d_model: int, ssm_cfg, dtype,
+               device) -> Params:
+    d_inner = ssm_cfg.expand * d_model
+    H = max(ssm_cfg.num_ssm_heads, 1)
+    dh = d_inner // H
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=gen.device).to(device)
+    return {
+        "w_up": dense_init(gen, (d_model, 2 * d_inner), d_model, dtype,
+                           device),
+        "conv": (randn((ssm_cfg.conv_width, d_inner)) * 0.1).to(dtype),
+        # headwise (block-diagonal) q/k/v, as in the released xLSTM
+        "w_q": dense_init(gen, (H, dh, dh), dh, dtype, device),
+        "w_k": dense_init(gen, (H, dh, dh), dh, dtype, device),
+        "w_v": dense_init(gen, (H, dh, dh), dh, dtype, device),
+        "w_i": dense_init(gen, (d_inner, H), d_inner, torch.float32, device),
+        "w_f": dense_init(gen, (d_inner, H), d_inner, torch.float32, device),
+        # open forget gates at init
+        "f_bias": torch.full((H,), 3.0, dtype=torch.float32, device=device),
+        "norm": torch.ones((d_inner,), dtype=dtype, device=device),
+        "w_down": dense_init(gen, (d_inner, d_model), d_inner, dtype,
+                             device),
+    }
+
+
+def apply_mlstm(params: Params, x, ssm_cfg, *, state=None, conv_state=None,
+                chunk: int = 256, return_state: bool = False):
+    """x: (B,S,d). mLSTM via the decay-attention core with a = log σ(f̃)
+    and i = exp(clip(ĩ, -10, 10)) as the input scale; the value carries a
+    ones column whose output is the normalizer n_t. Decode when ``state``
+    is given (S == 1): returns (out, (ssm_state, conv_state)); prefill with
+    ``return_state`` returns the same, the conv state being the raw
+    pre-conv tail."""
+    B, S, d = x.shape
+    d_inner = params["w_down"].shape[0]
+    H = params["f_bias"].shape[0]
+    dh = d_inner // H
+    up = x @ params["w_up"]
+    xp, z = up[..., :d_inner], up[..., d_inner:]
+
+    decode = state is not None
+    cw = params["conv"].shape[0]
+    if not decode and return_state:
+        tail = xp[:, -(cw - 1):]
+    xc, cs = _causal_conv(xp, params["conv"],
+                          conv_state if decode else None)
+    if not decode and return_state:
+        cs = tail
+
+    xh = xc.reshape(B, S, H, dh)
+    # the scale in the model dtype, as JAX takes a weakly typed scalar
+    scale = torch.tensor(dh ** -0.5, dtype=x.dtype)
+    q = torch.einsum("bshd,hde->bshe", xh, params["w_q"]) * scale
+    k = torch.einsum("bshd,hde->bshe", xh, params["w_k"]) * scale
+    v = torch.einsum("bshd,hde->bshe", xh, params["w_v"])
+    f_t = xc.float() @ params["w_f"] + params["f_bias"]
+    i_t = xc.float() @ params["w_i"]
+    a = log_sigmoid(f_t)                                    # (B,S,H) log decay
+    i = mathfn.exp(torch.clamp(i_t, -10.0, 10.0))           # clamped exp gate
+
+    # the augmented value channel tracks the normalizer n_t
+    v_aug = torch.cat([v.float(), v.new_ones((B, S, H, 1),
+                                             dtype=torch.float32)], dim=-1)
+    if decode:
+        y, new_state = decay_attention_step(
+            q[:, 0], k[:, 0], v_aug[:, 0], a[:, 0], i[:, 0], state)
+        y = y[:, None]
+    else:
+        # f32 q and k, as the reference's core takes them (exact)
+        y, new_state = chunked_decay_attention(
+            q.float(), k.float(), v_aug, a, i, chunk=min(chunk, S),
+            return_state=True)
+    y, n = y[..., :dh], y[..., dh:]
+    y = y / torch.clamp(n.abs(), min=1.0)                   # xLSTM normalizer
+
+    y = y.reshape(B, S, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"])
+    out = y @ params["w_down"]
+    if decode or return_state:
+        return out, (new_state, cs)
+    return out
+
+
+def mlstm_state_shape(batch: int, d_model: int, ssm_cfg):
+    d_inner = ssm_cfg.expand * d_model
+    H = max(ssm_cfg.num_ssm_heads, 1)
+    dh = d_inner // H
+    return {"ssm": (batch, H, dh, dh + 1),
+            "conv": (batch, ssm_cfg.conv_width - 1, d_inner)}
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM) — scalar memory, strictly sequential scan
+# ---------------------------------------------------------------------------
+
+def init_slstm(gen: torch.Generator, d_model: int, num_heads: int, dtype,
+               device) -> Params:
+    dh = d_model // num_heads
+    ffn = int(d_model * 4 / 3)
+    ffn = (ffn + 127) // 128 * 128                          # lane-align
+    return {
+        # 4 gates (i, f, z, o) from input and block-diag recurrent R per head
+        "w_gates": dense_init(gen, (d_model, 4 * d_model), d_model, dtype,
+                              device),
+        "r_gates": dense_init(gen, (num_heads, dh, 4 * dh), dh, dtype,
+                              device),
+        "b_gates": torch.zeros((4 * d_model,), dtype=torch.float32,
+                               device=device),
+        "norm": torch.ones((d_model,), dtype=dtype, device=device),
+        "ffn_up": dense_init(gen, (d_model, 2 * ffn), d_model, dtype, device),
+        "ffn_down": dense_init(gen, (ffn, d_model), ffn, dtype, device),
+    }
+
+
+def _slstm_gates(g, c, n, m, num_heads):
+    """Gate math given pre-activations g: (B, 4d). The stabilizer m_new is
+    the larger of a head's largest forget pre-activation plus m and its
+    largest input pre-activation; h is exactly invariant to it."""
+    B = g.shape[0]
+    d = g.shape[1] // 4
+    dh = d // num_heads
+    gi, gf, gz, go = torch.split(g, d, dim=-1)
+    gi_h = gi.reshape(B, num_heads, dh)
+    gf_h = gf.reshape(B, num_heads, dh)
+    fi = gf_h.amax(dim=-1) + m                              # (B,H)
+    ii = gi_h.amax(dim=-1)
+    m_new = torch.maximum(fi, ii)
+    i_p = mathfn.exp(gi_h - m_new[..., None]).reshape(B, d)
+    f_p = mathfn.exp(gf_h + m[:, :, None] - m_new[:, :, None]).reshape(B, d)
+    z = mathfn.tanh(gz)
+    o = torch.sigmoid(go)
+    c_new = f_p * c + i_p * z
+    n_new = f_p * n + i_p
+    h_new = o * c_new / torch.clamp(n_new, min=1e-6)
+    return c_new, n_new, h_new, m_new
+
+
+def _slstm_cell(r32, b_gates, num_heads, x_t, carry):
+    """One sLSTM step. x_t: (B, 4d) pre-activations from the input path;
+    r32: the f32 recurrent weights (H, dh, 4 dh); carry: (c, n, h, m) each
+    (B, d) except m (B, H). The recurrent term's (B, H, 4 dh) layout is
+    added to the gate-major pre-activations as is, as in the reference."""
+    c, n, h, m = carry
+    B, d = h.shape
+    dh = d // num_heads
+    rec = torch.einsum("bhd,hde->bhe", h.reshape(B, num_heads, dh),
+                       r32).reshape(B, 4 * d)
+    g = x_t + rec + b_gates
+    return _slstm_gates(g, c, n, m, num_heads)
+
+
+def apply_slstm(params: Params, x, num_heads: int, *, carry=None,
+                return_state: bool = False):
+    """x: (B,S,d). Sequential over S (a Python loop of ``_slstm_cell``,
+    the reference's ``lax.scan``). Returns out (+ the carry (c, n, h, m),
+    f32, when streaming or ``return_state``). The FFN's GELU is the tanh
+    approximation, ``jax.nn.gelu``'s default."""
+    B, S, d = x.shape
+    stream = carry is not None or return_state
+    pre = (x @ params["w_gates"]).float()                   # (B,S,4d)
+    if carry is None:
+        z32 = x.new_zeros((B, d), dtype=torch.float32)
+        carry = (z32, z32, z32, x.new_zeros((B, num_heads),
+                                            dtype=torch.float32))
+    else:
+        carry = tuple(t.float() for t in carry)
+    r32 = params["r_gates"].float()
+    hs = []
+    for t in range(S):
+        carry = _slstm_cell(r32, params["b_gates"], num_heads, pre[:, t],
+                            carry)
+        hs.append(carry[2])
+    y = torch.stack(hs, dim=1).to(x.dtype)                  # (B,S,d)
+    y = rms_norm(y, params["norm"])
+    u = y @ params["ffn_up"]
+    ffn = params["ffn_down"].shape[0]
+    y = (F.gelu(u[..., :ffn], approximate="tanh") * u[..., ffn:]) \
+        @ params["ffn_down"]
+    if stream:
+        return y, carry
+    return y
+
+
+def slstm_state_shape(batch: int, d_model: int, num_heads: int):
+    return {"c": (batch, d_model), "n": (batch, d_model),
+            "h": (batch, d_model), "m": (batch, num_heads)}

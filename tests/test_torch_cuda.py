@@ -473,22 +473,141 @@ def test_ssd_scan_is_one_launch_on_card(cuda, dtype):
 
 @pytest.mark.cuda
 def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
-    """A CUDA tensor the kernel cannot take raises; it never runs the plain
-    version instead."""
-    q, k, v, a, i, _ = _ssd_inputs(1, 256, 2, 16, 16, "model", False,
+    """A CUDA tensor the kernels cannot take raises; it never runs the plain
+    version instead: a chunk beyond the wide path's 256, dk beyond its
+    1024, bf16 at a wide shape (the wide path is f32 only), a half dtype,
+    rows that are not contiguous; and a wide shape whose gradient is wanted
+    (forward under grad, or the backward itself), which waits for the
+    xLSTM training slice."""
+    q, k, v, a, i, _ = _ssd_inputs(1, 512, 2, 16, 16, "model", False,
                                    "float32", cuda)
-    before = ssd_scan.ssd_scan.launches
+    before = (ssd_scan.ssd_scan.launches, ssd_scan.ssd_scan.bwd_launches)
     with pytest.raises(ValueError, match="chunk"):
-        ssd_scan.ssd_scan(q, k, v, a, i, chunk=256)
+        ssd_scan.ssd_scan(q, k, v, a, i, chunk=512)
     with pytest.raises(TypeError):
         ssd_scan.ssd_scan(q.half(), k.half(), v.half(), a, i, chunk=128)
-    wide = torch.zeros((1, 256, 2, 160), device=cuda)
+    huge = torch.zeros((1, 512, 2, 2048), device=cuda)
     with pytest.raises(ValueError, match="dk"):
-        ssd_scan.ssd_scan(wide, wide, v, a, i, chunk=128)
+        ssd_scan.ssd_scan(huge, huge, v, a, i, chunk=128)
+    wide = torch.zeros((1, 512, 2, 160), device=cuda)
+    with pytest.raises(TypeError, match="wide"):
+        ssd_scan.ssd_scan(wide.bfloat16(), wide.bfloat16(), v.bfloat16(), a,
+                          i, chunk=128)
     with pytest.raises(ValueError, match="rows"):
         ssd_scan.ssd_scan(q.transpose(2, 3).contiguous().transpose(2, 3), k,
                           v, a, i, chunk=128)
-    assert ssd_scan.ssd_scan.launches == before
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ssd_scan.ssd_scan(wide.clone().requires_grad_(True), wide, v, a, i,
+                          chunk=128)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        ssd_scan.ssd_scan_bwd(wide, wide, v, a, i, torch.zeros_like(v),
+                              chunk=256, states=None)
+    assert (ssd_scan.ssd_scan.launches,
+            ssd_scan.ssd_scan.bwd_launches) == before
+
+
+# The wide path (mLSTM's heads: dk = dh, dv = dh + 1 with the ones column
+# appended, f32) against ssd_scan_ref: (B, S, H, dk, dv, chunk, gates,
+# initial state). xlstm-1.3b's prefill shape (B 4, S 1024, H 4, dk 1024,
+# dv 1025, chunk 256: the last 16-column tile holds one column) with the
+# model's gates and gentle ones; the smoke config's (dk 128, dv 129, chunk
+# 64); a run from an initial state; sizes that are no multiple of the
+# kernels' tiles (dk 200, dv 77, chunk 96); a chunk shorter than a warp's
+# strip; and chunk 256 at narrow heads.
+SSD_WIDE_SERVE = (4, 1024, 4, 1024, 1025, 256)
+SSD_WIDE_CASES = [(*SSD_WIDE_SERVE, "mlstm", False),
+                  (*SSD_WIDE_SERVE, "gentle", False),
+                  (2, 128, 4, 128, 129, 64, "mlstm", False),
+                  (2, 128, 4, 128, 129, 64, "gentle", True),
+                  (1, 512, 2, 1024, 1025, 256, "mlstm", True),
+                  (2, 192, 3, 200, 77, 96, "gentle", True),
+                  (1, 40, 2, 256, 257, 40, "mlstm", False),
+                  (2, 512, 2, 64, 64, 256, "gentle", True)]
+
+
+def _wide_inputs(B, S, H, dk, dv, gates, init, dev, seed=0):
+    """mLSTM's operands: per-head f32 q, k ~ N(0, 1/dk), v (B, S, H, dv)
+    whose last column is ones (the normalizer's), and gates a = log
+    sigmoid(3 + N(0, 1)), i = exp(clip(4 N(0, 1), -10, 10)) ("mlstm": the
+    forget gate's bias 3, the input gate up to e^10) or a ~ U(-0.02, 0),
+    i = softplus(N(0, 1)) ("gentle")."""
+    gen = torch.Generator(device=dev).manual_seed(seed + S + H + dk + dv)
+    q = torch.randn((B, S, H, dk), generator=gen, device=dev) * dk ** -0.5
+    k = torch.randn((B, S, H, dk), generator=gen, device=dev) * dk ** -0.5
+    v = torch.randn((B, S, H, dv), generator=gen, device=dev)
+    v[..., -1] = 1.0
+    if gates == "mlstm":
+        f = 3.0 + torch.randn((B, S, H), generator=gen, device=dev)
+        a = F.logsigmoid(f)
+        i = torch.exp(torch.clamp(
+            4.0 * torch.randn((B, S, H), generator=gen, device=dev),
+            -10.0, 10.0))
+    else:
+        a = -0.02 * torch.rand((B, S, H), generator=gen, device=dev)
+        i = F.softplus(torch.randn((B, S, H), generator=gen, device=dev))
+    h0 = torch.randn((B, H, dk, dv), generator=gen, device=dev) \
+        if init else None
+    return q, k, v, a, i, h0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,gates,init", [
+    pytest.param(*c, id="-".join(map(str, c))) for c in SSD_WIDE_CASES])
+def test_ssd_scan_wide_matches_plain_version_on_card(cuda, B, S, H, dk, dv,
+                                                     chunk, gates, init):
+    """y and the final state within ``ssd_scan.excess`` of the plain
+    version's f32 result on the same card inputs, one call counted."""
+    assert ssd_scan.is_wide(dk, dv, chunk)
+    q, k, v, a, i, h0 = _wide_inputs(B, S, H, dk, dv, gates, init, cuda)
+    before = ssd_scan.ssd_scan.launches
+    y, h = ssd_scan.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan.launches == before + 1
+    assert y.dtype == torch.float32 and y.shape == v.shape
+    assert h.dtype == torch.float32 and h.shape == (B, H, dk, dv)
+    y32, h32 = ref.ssd_scan_ref(q, k, v, a, i, chunk=chunk, initial_state=h0)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert ssd_scan.excess(y, y32) <= 0
+    assert ssd_scan.excess(h, h32) <= 0
+
+
+# the planted faults that apply to the wide path (it splits nothing into
+# bf16 parts, so ``p_one_part`` does not)
+WIDE_FAULTS = tuple(f for f in ssd_scan.FAULTS if f != "p_one_part")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [SSD_WIDE_SERVE, (2, 128, 4, 128, 129, 64)])
+def test_ssd_wide_tolerance_rejects_planted_faults_on_card(cuda, shape):
+    """At the serve and smoke shapes with gentle gates, the plain version
+    with each planted fault fails the check the wide path passes."""
+    B, S, H, dk, dv, chunk = shape
+    q, k, v, a, i, h0 = _wide_inputs(B, S, H, dk, dv, "gentle", False, cuda)
+    y32, h32 = ref.ssd_scan_ref(q, k, v, a, i, chunk=chunk)
+    for fault in WIDE_FAULTS:
+        fy, fh = ref.ssd_scan_ref(q, k, v, a, i, chunk=chunk, fault=fault)
+        assert max(ssd_scan.excess(fy, y32), ssd_scan.excess(fh, h32)) > 0, \
+            fault
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wide_is_two_deterministic_launches_on_card(cuda):
+    """At the serve shape from an initial state, two calls give the same
+    bits; 4 calls make 8 kernel launches (the scores, then the state walk)
+    and no copy or memset, and every device record the profiler keeps is
+    one of the wide path's two kernels."""
+    q, k, v, a, i, h0 = _wide_inputs(*SSD_WIDE_SERVE[:5], "mlstm", True,
+                                     cuda)
+    chunk = SSD_WIDE_SERVE[-1]
+    y1, h1 = ssd_scan.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
+    y2, h2 = ssd_scan.ssd_scan(q, k, v, a, i, chunk=chunk, initial_state=h0)
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+    enqueued, device = _build.launch_records(
+        lambda: ssd_scan.ssd_scan(q, k, v, a, i, chunk=chunk,
+                                  initial_state=h0))
+    assert enqueued == ["cudaLaunchKernel"] * (4 * ssd_scan.WIDE_LAUNCHES), \
+        enqueued
+    assert all("ssd_wide" in n for n in device), device
 
 
 @pytest.mark.cuda

@@ -214,7 +214,8 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
     scores, and training: the LLM loss with its backward (a dense decoder,
     an MoE decoder and the zamba2 hybrid, through K4's plain backward), the
     attention's chunked backward, and the clipped AdamW step; and the MoE
-    decoder's prefill and decode."""
+    decoder's and xLSTM's prefill and decode (xLSTM's mLSTM and sLSTM
+    gates: log σ, exp, tanh)."""
     from repro_torch.configs.base import FederationConfig, TrainConfig
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.core import trust
@@ -261,6 +262,15 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
         with torch.no_grad():
             _, cache = api.prefill(m_params, mcfg, {"tokens": toks}, 65)
             api.decode_step(m_params, mcfg, cache, toks[:, :1], 64)
+
+    xcfg = get_smoke_config("xlstm-1.3b").replace(dtype="float32")
+    x_params = api.init(xcfg, torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
+
+    def xlstm_decode():
+        with torch.no_grad():
+            _, cache = api.prefill(x_params, xcfg, {"tokens": toks}, 65)
+            api.decode_step(x_params, xcfg, cache, toks[:, :1], 64)
 
     zcfg = get_smoke_config("zamba2-7b").replace(dtype="float32")
     z_params = api.init(zcfg, torch.Generator().manual_seed(0),
@@ -310,6 +320,7 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
         "hybrid_loss_and_grad": hybrid_loss_and_grad,
         "moe_loss_and_grad": moe_loss_and_grad,
         "moe_decode": moe_decode,
+        "xlstm_decode": xlstm_decode,
         "blocked_attention_backward": attention_backward,
         "adamw_update": adamw_step,
     }

@@ -364,7 +364,7 @@ def test_serve_cli_prints_the_reference_lines(capsys):
 
 def test_registry_holds_only_ported_archs():
     assert ARCH_IDS == [ARCH, "olmoe-1b-7b", "qwen2-moe-a2.7b",
-                        "smollm-135m", "yi-6b", "zamba2-7b"]
+                        "smollm-135m", "xlstm-1.3b", "yi-6b", "zamba2-7b"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.window) == (24, 2560, 32, 8, 80,

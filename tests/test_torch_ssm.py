@@ -31,7 +31,7 @@ import torch
 from repro_torch import convert
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.kernels import ref, ssd_scan
-from repro_torch.models import hybrid, ssm
+from repro_torch.models import hybrid, layers, ssm
 
 jax.config.update("jax_enable_x64", False)
 
@@ -276,7 +276,7 @@ def _mamba(jref, dtype, seed=0):
     jp, _ = jref.api.init(jcfg, jax.random.PRNGKey(seed), tp=1)
     p = convert.params_from_jax(jp)
     return (jcfg, cfg, jax.tree.map(lambda t: t[0, 0], jp["super"]["mamba"]),
-            hybrid._group(p, hybrid.SUPER, (0, 0))["mamba"])
+            layers.param_group(p, hybrid.SUPER, (0, 0))["mamba"])
 
 
 def _x(cfg, B, S, dtype, seed=1):
