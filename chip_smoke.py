@@ -65,15 +65,17 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   launch a call (``one_kernel``); times at the serve shape
                   beside the bound (bytes, or flops on the bf16 tensor
                   cores) and the bound on the ordinary f32 cores. Then K4's
-                  wide path (f32): xlstm-1.3b's prefill shape (B 4, S
-                  1024, H 4, dk 1024, dv 1025, chunk 256, per-head q and
-                  k, v's last column ones) with mLSTM's gates (forget
-                  bias 3, input gate up to e^10) and gentle ones, the
-                  smoke config's (dk 128, dv 129, chunk 64), an initial
-                  state, sizes off the kernels' tiles; the planted faults
-                  that apply (all but ``p_one_part``) must fail at the
-                  serve and smoke shapes; two calls bitwise equal, 4 calls
-                  8 kernel launches; times beside ``ssd_scan.bound`` with
+                  wide path (f32, on the tensor cores): xlstm-1.3b's
+                  prefill shape (B 4, S 1024, H 4, dk 1024, dv 1025, chunk
+                  256, per-head q and k, v's last column ones) with
+                  mLSTM's gates (forget bias 3, input gate up to e^10) and
+                  gentle ones, the smoke config's (dk 128, dv 129, chunk
+                  64), an initial state, sizes off the kernels' tiles; the
+                  five planted faults must fail at the serve and smoke
+                  shapes; two calls bitwise equal, 4 calls 4 x
+                  ``WIDE_LAUNCHES`` kernel launches; the serve's
+                  bf16-valued q, k, v within the tolerance too; times on
+                  those (and on f32 values) beside ``ssd_scan.bound`` with
                   q and k per head
   zamba_parity    ``launch.serve.serve`` on the card against the same on the
                   CPU: zamba2-7b at full width cut to 3 layers (one
@@ -1188,12 +1190,13 @@ def ssd_wide_case(K4, name, shape, gates, init, gen):
     """K4's wide path against its plain version's result on the same
     inputs (both f32), y and the final state within ``K4.excess``. With
     gentle gates at the serve and smoke shapes the plain version with each
-    planted fault that applies (all but ``p_one_part``: the wide path
-    splits nothing into bf16 parts) must fail that check; at the serve
-    shape with the model's gates two calls must give the same bits, 4
-    calls must make 8 kernel launches (``K4.WIDE_LAUNCHES`` a call) and
-    nothing else, and the path and the plain version are timed beside the
-    bound."""
+    planted fault (``p_one_part`` among them: the wide path splits the
+    gated scores into bf16 parts) must fail that check; at the serve shape
+    with the model's gates two calls must give the same bits, 4 calls must
+    make 4 x ``K4.WIDE_LAUNCHES`` kernel launches and nothing else, the
+    same holds with bf16-valued q, k and v (the serve's, whose zero bf16
+    parts the kernel skips), and the path and the plain version are timed
+    on those beside the bound (and the path on full f32 values too)."""
     B, S, H, dk, dv, chunk = (shape[x] for x in ("B", "S", "H", "dk", "dv",
                                                  "chunk"))
     check(K4.is_wide(dk, dv, chunk), f"{shape} is not a wide shape")
@@ -1222,7 +1225,7 @@ def ssd_wide_case(K4, name, shape, gates, init, gen):
                                      initial_state=h0, fault=fault)
             faults[fault] = {"y_excess": K4.excess(fy, y32),
                              "state_excess": K4.excess(fh, h32)}
-            check(fault == "p_one_part" or max(faults[fault].values()) > 0,
+            check(max(faults[fault].values()) > 0,
                   f"K4's tolerance passes a planted fault at a wide "
                   f"shape: {fault}")
             del fy, fh
@@ -1243,12 +1246,30 @@ def ssd_wide_case(K4, name, shape, gates, init, gen):
         fl = K4.flops(B, S, H, dk, dv, chunk)
         row.update(K4.bound(B, S, H, dk, dv, chunk, 4, bw, tensor_peak(name),
                             f32_peak, qk_per_head=True))
+        # the serve's operands: bf16 values in f32 (models/ssm.py)
+        qb, kb, vb = (x.bfloat16().float() for x in (q, k, v))
+        yb, hb = K4.ssd_scan(qb, kb, vb, a, i, chunk=chunk)
+        yb2, hb2 = K4.ssd_scan(qb, kb, vb, a, i, chunk=chunk)
+        yb32, hb32 = K4.ssd_scan_ref(qb, kb, vb, a, i, chunk=chunk)
+        row["bf16_values"] = {
+            "excess": {"y": K4.excess(yb, yb32), "state": K4.excess(hb, hb32)},
+            "max_abs_err": float((yb - yb32).abs().max()),
+            "bitwise_equal_rerun": bool(torch.equal(yb, yb2)
+                                        and torch.equal(hb, hb2))}
+        check(max(row["bf16_values"]["excess"].values()) <= 0
+              and row["bf16_values"]["bitwise_equal_rerun"],
+              f"wide K4 on bf16-valued operands: {row['bf16_values']}")
+        del yb, hb, yb2, hb2, yb32, hb32
         row.update({
-            "ms": time_ms(lambda: K4.ssd_scan(q, k, v, a, i, chunk=chunk)),
-            "plain_ms": time_ms(lambda: K4.ssd_scan_ref(q, k, v, a, i,
+            "design": K4.WIDE_DESIGN,
+            "ms": time_ms(lambda: K4.ssd_scan(qb, kb, vb, a, i, chunk=chunk)),
+            "ms_f32_values": time_ms(lambda: K4.ssd_scan(q, k, v, a, i,
+                                                         chunk=chunk)),
+            "plain_ms": time_ms(lambda: K4.ssd_scan_ref(qb, kb, vb, a, i,
                                                         chunk=chunk)),
             "library_ms": None, "min_bytes": nbytes, "flops": fl,
             "launches_per_call": K4.WIDE_LAUNCHES})
+        del qb, kb, vb
         row["achieved_tflop_s"] = fl / row["ms"] / 1e9
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["share_of_f32_core_bound"] = row["f32_core_bound_ms"] / row["ms"]
@@ -3539,7 +3560,7 @@ def main():
         raise AssertionError("ssd_scan never launched on the xlstm serve "
                              "path")
     # K4's calls on its paths: zamba2's serve and round (the narrow
-    # kernel) and xlstm's serve (the wide path, two launches a call); the
+    # kernel) and xlstm's serve (the wide path, three launches a call); the
     # top-level numbers are the narrow kernel's at zamba2's prefill, the
     # wide path's at xlstm-1.3b's prefill under "wide"
     summary.append({
@@ -3555,11 +3576,12 @@ def main():
                                            "gates", "dtype")},
         "wide": {
             "source": "src/repro_torch/csrc/ssd_scan_wide.cu",
+            "design": ssd_wide_row["design"],
             "launches": xlstm_counts["ssd_scan"],
             "launches_per_call": ssd_wide_row["launches_per_call"],
             **{k: ssd_wide_row[k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "f32_core_bound_ms", "library_ms")},
+                "max_abs_err", "ms", "ms_f32_values", "plain_ms",
+                "bound_ms", "bound_by", "f32_core_bound_ms", "library_ms")},
             "shape": {k: ssd_wide_row[k] for k in (
                 "B", "S", "H", "dk", "dv", "chunk", "gates", "dtype")}}})
     # K4's backward: no TPU kernel; the reference takes the VJP of its jnp

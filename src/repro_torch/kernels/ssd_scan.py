@@ -40,15 +40,22 @@ has no kernel here: it trains through XLA's autodiff of the jnp scan.
 ``bwd_bound`` gives the backward's least time.
 
 Wide heads (mLSTM: dk = dh, dv = dh + 1, chunks of up to 256; ``is_wide``)
-take a second path, ``csrc/ssd_scan_wide.cu``: f32 q, k and v, f32 FMAs on
-the ordinary cores, two launches a call (``WIDE_LAUNCHES``): the gated
-scores of every (batch, head, chunk) into a scratch buffer, then blocks
-that each own 16 columns of one (batch, head)'s state and walk the chunks.
-It has no backward yet (the xLSTM training slice); on the card a wide call
+take a second path, ``csrc/ssd_scan_wide.cu``: f32 q, k and v, the
+products on the tensor cores, three launches a call (``WIDE_LAUNCHES``),
+the chunk-parallel split: q, k, v and w·v split into bf16 parts once, then
+the state before every chunk (blocks that own a 128 × 128 tile of a
+(batch, head)'s state and walk the chunks) and the gated scores of every
+(batch, head, chunk), all in a scratch buffer, then y by (batch, head,
+chunk) tiles. The gated scores, the states and w·v enter as
+``WIDE_PARTS`` bf16 parts (``ssd_scan_ref(..., parts=WIDE_PARTS)``
+emulates that), q, k and v as three (exact), and a part that is zero
+across a slab (the serve's bf16-valued q, k, v) skips its products. It
+has no backward yet (the xLSTM training slice); on the card a wide call
 whose gradient is wanted raises, as does a wide ``ssd_scan_bwd``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -60,7 +67,10 @@ MAX_CHUNK = 128          # chunk positions the narrow kernel takes
 MAX_D = 128              # dk and dv the narrow kernel takes
 WIDE_MAX_CHUNK = 256     # chunk positions the wide path takes
 WIDE_MAX_DK = 1024       # dk the wide path takes (dv is free)
-WIDE_LAUNCHES = 2        # kernel launches a call of the wide path makes
+WIDE_LAUNCHES = 3        # kernel launches a call of the wide path makes
+WIDE_PARTS = 2           # bf16 parts of P, the states and w·v there
+WIDE_DESIGN = ("chunk-parallel split on the tensor cores: bf16 parts of q, "
+               "k, v, w·v; states before each chunk and gated scores; y")
 
 # The card check (``chip_smoke.py``, ``tests/test_torch_cuda.py``) holds
 # the kernel elementwise to the plain version's f32 result on the same
@@ -301,11 +311,27 @@ def _check_card(q, k, v, chunk):
         raise ValueError("q, k, v need contiguous rows (last stride 1)")
 
 
+def wide_scratch_bytes(B: int, S: int, H: int, dk: int, dv: int,
+                       chunk: int) -> int:
+    """Bytes of the scratch buffer a wide call on the card needs (the
+    kernel library's own count, so it builds the library): the bf16 parts
+    of q, k, v and w·v, of the gated scores and of the state before each
+    chunk, the chunks' cumsums and the parts in use. 0.66 GB at
+    xlstm-1.3b's prefill."""
+    out = ctypes.c_longlong()
+    err = _build.load().repro_ssd_scan_wide_scratch(
+        B, S, H, dk, dv, chunk, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"no wide scan at B {B}, S {S}, H {H}, dk {dk}, "
+                         f"dv {dv}, chunk {chunk}")
+    return out.value
+
+
 def _launch_fwd(q, k, v, a, i, h0, chunk: int, with_states: bool):
     """One K4 call on the card → (y, final state, and the state before each
     chunk (B, nc, H, dk, dv) f32 when ``with_states``, else None): the
-    narrow kernel's one launch, or the wide path's two (``is_wide``), which
-    keeps no states and so raises when they are asked for."""
+    narrow kernel's one launch, or the wide path's three (``is_wide``),
+    which keeps no states and so raises when they are asked for."""
     _check_card(q, k, v, chunk)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
@@ -323,13 +349,13 @@ def _launch_fwd(q, k, v, a, i, h0, chunk: int, with_states: bool):
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     states = None
     if wide:
-        # the gated scores of every (b, h, chunk), written by the first
-        # launch and read by the second
-        scores = torch.empty((B, H, S // chunk, chunk, chunk), dtype=f32,
-                             device=dev)
+        # the bf16 parts of q, k, v, w·v, the gated scores and the state
+        # before every chunk, which the three launches pass on
+        nbytes = wide_scratch_bytes(B, S, H, dk, dv, chunk)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         _build.launch("repro_ssd_scan_wide", dev, *ptrs, B, S, H, dk, dv,
-                      chunk, *strides, _build.ptr(scores), _build.ptr(y),
-                      _build.ptr(h))
+                      chunk, *strides, _build.ptr(scratch), nbytes,
+                      _build.ptr(y), _build.ptr(h))
     else:
         if with_states:
             states = torch.empty((B, S // chunk, H, dk, dv), dtype=f32,
@@ -383,7 +409,7 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the gates and the initial state are read as contiguous f32. Which
     kernel, by shape: dk, dv and chunk all <= 128 take the narrow kernel,
     one launch, q, k, v float32 or bfloat16 alike; wider heads or chunks
-    (``is_wide``: mLSTM's dk = dh, dv = dh + 1) take the wide path, two
+    (``is_wide``: mLSTM's dk = dh, dv = dh + 1) take the wide path, three
     launches, float32 only, chunk <= 256 and dk <= 1024; anything else
     raises. On CPU tensors it returns the plain version.
 
@@ -627,7 +653,7 @@ def bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
     flops over the bf16 tensor cores' dense rate, in either dtype (the
     narrow kernel's products run there). ``f32_core_bound_ms`` is the same
     work with the flops on the ordinary f32 cores, the bound of the
-    ordinary-core designs (the wide path's among them)."""
+    ordinary-core designs."""
     t_bytes = hbm_bytes(B, S, H, dk, dv, itemsize, qk_per_head=qk_per_head,
                         qk_itemsize=qk_itemsize)["minimum"] / \
         hbm_bytes_per_s * 1e3

@@ -571,9 +571,9 @@ def test_ssd_scan_wide_matches_plain_version_on_card(cuda, B, S, H, dk, dv,
     assert ssd_scan.excess(h, h32) <= 0
 
 
-# the planted faults that apply to the wide path (it splits nothing into
-# bf16 parts, so ``p_one_part`` does not)
-WIDE_FAULTS = tuple(f for f in ssd_scan.FAULTS if f != "p_one_part")
+# the planted faults that apply to the wide path: all of them, since it
+# splits the gated scores into bf16 parts as the narrow kernel does
+WIDE_FAULTS = ssd_scan.FAULTS
 
 
 @pytest.mark.cuda
@@ -590,12 +590,38 @@ def test_ssd_wide_tolerance_rejects_planted_faults_on_card(cuda, shape):
             fault
 
 
+@pytest.mark.parametrize("f32_at", [None, "q", "v"])
+@pytest.mark.cuda
+def test_ssd_scan_wide_bf16_values_on_card(cuda, f32_at):
+    """At the serve shape with bf16-valued q, k and v (the serve's: their
+    second and third bf16 parts are zero, and the kernel skips them), and
+    with one f32 row of q or v among them (the slab that holds it takes
+    three parts): within ``ssd_scan.excess`` of the plain version, and two
+    calls give the same bits."""
+    q, k, v, a, i, _ = _wide_inputs(*SSD_WIDE_SERVE[:5], "mlstm", False,
+                                    cuda)
+    chunk = SSD_WIDE_SERVE[-1]
+    exact = [x.bfloat16().float() for x in (q, k, v)]
+    if f32_at == "q":
+        exact[0][1, 700, 2] = q[1, 700, 2]
+    elif f32_at == "v":
+        exact[2][2, 300, 1] = v[2, 300, 1]
+    y, h = ssd_scan.ssd_scan(*exact, a, i, chunk=chunk)
+    y2, h2 = ssd_scan.ssd_scan(*exact, a, i, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    y32, h32 = ref.ssd_scan_ref(*exact, a, i, chunk=chunk)
+    assert ssd_scan.excess(y, y32) <= 0
+    assert ssd_scan.excess(h, h32) <= 0
+
+
 @pytest.mark.cuda
 def test_ssd_scan_wide_is_two_deterministic_launches_on_card(cuda):
     """At the serve shape from an initial state, two calls give the same
-    bits; 4 calls make 8 kernel launches (the scores, then the state walk)
-    and no copy or memset, and every device record the profiler keeps is
-    one of the wide path's two kernels."""
+    bits; 4 calls make 4 x ``WIDE_LAUNCHES`` kernel launches (the bf16
+    split of q, k, v and w·v, then the states before each chunk and the
+    gated scores, then y) and no copy or memset, and every device record
+    the profiler keeps is one of the wide path's kernels."""
     q, k, v, a, i, h0 = _wide_inputs(*SSD_WIDE_SERVE[:5], "mlstm", True,
                                      cuda)
     chunk = SSD_WIDE_SERVE[-1]

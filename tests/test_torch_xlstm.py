@@ -232,6 +232,47 @@ def test_ssd_scan_wide_matches_pallas_kernel(jref):
     _close(got, want, 1e-5, "y", rel=True)
 
 
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_scan_wide_bf16_split_is_within_the_card_tolerance(init):
+    """What the wide path's bf16 split costs, emulated on the CPU at one
+    wide head (dk 1024, dv 1025, chunk 256, S 512, mLSTM's gates with the
+    input gate up to e^10, as the card tests draw them): with the gated
+    scores, the states and w·v in ``WIDE_PARTS`` bf16 parts, y and the
+    final state stay within ``ssd_scan.excess`` of the f32 plain version
+    (measured ~0.05 of the tolerance); in one part (and the planted fault
+    ``p_one_part``, the scores alone) they do not (~14x over). The kernel
+    splits f32 q, k and v into three parts, which hold them exactly, so
+    the emulation leaves them as they are."""
+    rng = np.random.default_rng(11)
+    B, S, H, dk, Q = 1, 512, 2, 1024, 256
+    f = np.float32
+    q = (rng.standard_normal((B, S, H, dk)) / np.sqrt(dk)).astype(f)
+    k = (rng.standard_normal((B, S, H, dk)) / np.sqrt(dk)).astype(f)
+    v = rng.standard_normal((B, S, H, dk + 1)).astype(f)
+    v[..., -1] = 1.0
+    a = (-np.logaddexp(0.0, -(3.0 + rng.standard_normal((B, S, H))))
+         ).astype(f)
+    i = np.exp(np.clip(4.0 * rng.standard_normal((B, S, H)), -10, 10)
+               ).astype(f)
+    h0 = rng.standard_normal((B, H, dk, dk + 1)).astype(f) if init else None
+    ops = [torch.from_numpy(x) for x in (q, k, v, a, i)]
+    h0 = None if h0 is None else torch.from_numpy(h0)
+    y32, h32 = ssd_scan.ssd_scan_ref(*ops, chunk=Q, initial_state=h0)
+    got = ssd_scan.ssd_scan_ref(*ops, chunk=Q, initial_state=h0,
+                                parts=ssd_scan.WIDE_PARTS)
+    assert ssd_scan.excess(got[0], y32) <= 0
+    assert ssd_scan.excess(got[1], h32) <= 0
+    one = ssd_scan.ssd_scan_ref(*ops, chunk=Q, initial_state=h0, parts=1)
+    assert max(ssd_scan.excess(one[0], y32), ssd_scan.excess(one[1], h32)) > 0
+    fy, _ = ssd_scan.ssd_scan_ref(*ops, chunk=Q, initial_state=h0,
+                                  fault="p_one_part")
+    assert ssd_scan.excess(fy, y32) > 0
+    # parts=None is the plain version itself, bit for bit
+    again = ssd_scan.ssd_scan_ref(*ops, chunk=Q, initial_state=h0,
+                                  parts=None)
+    assert torch.equal(again[0], y32) and torch.equal(again[1], h32)
+
+
 def test_wide_dispatch_and_byte_count():
     """Which calls take the wide path; K4's bytes count q and k per head
     for mLSTM and once for Mamba2's head-stride-0 views: at the xLSTM
