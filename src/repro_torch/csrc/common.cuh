@@ -8,7 +8,9 @@
 //   * cp.async copies (K4, K5);
 //   * the tensor-core pieces of K4 (and its backward) and K5: ldmatrix,
 //     mma.sync m16n8k16 on bf16 and the split of f32 values into bf16
-//     parts whose products keep f32's accuracy; K4's decay exp.
+//     parts whose products keep f32's accuracy; K4's decay exp;
+//   * the chunk's fixed-order cumsum of the gates (K4's wide path and its
+//     backward).
 //
 // No float atomics anywhere. The scores these kernels feed are committed
 // on-chain as <f8 inside Merkle-hashed records, so every sum has one fixed
@@ -123,6 +125,37 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
                : nullptr;
   }();
   return fn;
+}
+
+// -- K4's wide path and its backward ----------------------------------------
+
+// The chunk's inclusive cumsum of the log-decays a[s * stride], s < Q, into
+// cum[0 .. Q): warp 0 alone, lane l summing its strip of ceil(Q / 32)
+// positions in order after the shuffle scan of the strip totals. The
+// caller synchronizes.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ a,
+                                             int64_t stride, int Q,
+                                             float* __restrict__ cum) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  const int per = (Q + 31) / 32;
+  const int s0 = lane * per;
+  float tot = 0.f;
+  for (int j = 0; j < per; ++j)
+    if (s0 + j < Q) tot += a[(int64_t)(s0 + j) * stride];
+  float inc = tot;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float x = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += x;
+  }
+  float run = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) run = 0.f;
+  for (int j = 0; j < per; ++j)
+    if (s0 + j < Q) {
+      run += a[(int64_t)(s0 + j) * stride];
+      cum[s0 + j] = run;
+    }
 }
 
 // -- cp.async and the tensor-core pieces (K4, K5) ----------------------------

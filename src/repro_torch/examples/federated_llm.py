@@ -1,7 +1,7 @@
 """Scenario: the generic-codebase claim (paper §VI.D) — the same SDFL-B
 protocol federating an LLM architecture (any of the port's dense or MoE
-decoders or the zamba2 hybrid via --arch; smoke size here, full size
-through ``repro_torch.launch.train --full``).
+decoders, the zamba2 hybrid or xLSTM via --arch; smoke size here, full
+size through ``repro_torch.launch.train --full``).
 
     PYTHONPATH=src python -m repro_torch.examples.federated_llm \\
         [--arch qwen2-moe-a2.7b] [--rounds 5] [--device cpu]
@@ -16,9 +16,9 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, \
 from repro_torch.core.protocol import SDFLBProtocol
 from repro_torch.data.datasets import synthetic_tokens
 
-# the port's LLM archs: the dense and MoE decoders and the hybrid
+# the port's LLM archs: the dense and MoE decoders, the hybrid and xLSTM
 LLM_ARCHS = [a for a in ARCH_IDS
-             if get_config(a).family in ("dense", "moe", "hybrid")]
+             if get_config(a).family in ("dense", "moe", "hybrid", "ssm")]
 
 
 def main(*, arch: str = "smollm-135m", rounds: int = 5,

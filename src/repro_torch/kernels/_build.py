@@ -44,8 +44,11 @@ _SIGNATURES = {
     "repro_ssd_scan_bwd": [_P] * 8 + [_I] * 7 + [_L] * 9 + [_P] * 7,
     "repro_ssd_scan_bwd_design": [_I] * 4,
     "repro_ssd_scan_wide": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_P, _L] +
-    [_P] * 3,
+    [_P] * 4,
     "repro_ssd_scan_wide_scratch": [_I] * 6 + [_P],
+    "repro_ssd_scan_wide_bwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_P, _L] +
+    [_P] * 7,
+    "repro_ssd_scan_wide_bwd_scratch": [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -49,9 +49,12 @@ the state before every chunk (blocks that own a 128 × 128 tile of a
 chunk) tiles. The gated scores, the states and w·v enter as
 ``WIDE_PARTS`` bf16 parts (``ssd_scan_ref(..., parts=WIDE_PARTS)``
 emulates that), q, k and v as three (exact), and a part that is zero
-across a slab (the serve's bf16-valued q, k, v) skips its products. It
-has no backward yet (the xLSTM training slice); on the card a wide call
-whose gradient is wanted raises, as does a wide ``ssd_scan_bwd``.
+across a slab (the serve's bf16-valued q, k, v) skips its products. Under
+grad its second launch also writes the f32 state before each chunk, and
+its backward is ``csrc/ssd_scan_wide_bwd.cu`` (``WIDE_BWD_LAUNCHES``
+launches, ``WIDE_BWD_DESIGN``: f32 FMAs in 128 x 128 tiles, the state's
+gradient walked in reverse by blocks that own a tile of it), counted in
+``ssd_scan.bwd_launches`` as the narrow one.
 """
 from __future__ import annotations
 
@@ -71,6 +74,10 @@ WIDE_LAUNCHES = 3        # kernel launches a call of the wide path makes
 WIDE_PARTS = 2           # bf16 parts of P, the states and w·v there
 WIDE_DESIGN = ("chunk-parallel split on the tensor cores: bf16 parts of q, "
                "k, v, w·v; states before each chunk and gated scores; y")
+WIDE_BWD_LAUNCHES = 3    # kernel launches a wide backward call makes
+WIDE_BWD_DESIGN = ("f32 FMAs in 128 x 128 tiles: the scores and the state's "
+                   "gradient walked in reverse by its tiles; dq, dk, dv; da, "
+                   "di")
 
 # The card check (``chip_smoke.py``, ``tests/test_torch_cuda.py``) holds
 # the kernel elementwise to the plain version's f32 result on the same
@@ -282,13 +289,6 @@ def is_wide(dk: int, dv: int, chunk: int) -> bool:
     return chunk > MAX_CHUNK or dk > MAX_D or dv > MAX_D
 
 
-_NO_WIDE_BWD = ("K4's backward at wide heads (dk or dv > 128 or chunk > 128, "
-                "mLSTM's) is not ported yet: it comes with the xLSTM "
-                "training slice. Call ssd_scan under torch.no_grad() on the "
-                "card, or on CPU tensors, whose plain version autograd "
-                "follows")
-
-
 def _check_card(q, k, v, chunk):
     """What the CUDA kernels need beyond the function's own domain."""
     dk, dv = q.shape[-1], v.shape[-1]
@@ -327,17 +327,28 @@ def wide_scratch_bytes(B: int, S: int, H: int, dk: int, dv: int,
     return out.value
 
 
+def wide_bwd_scratch_bytes(B: int, S: int, H: int, dk: int, dv: int,
+                           chunk: int) -> int:
+    """Bytes of the scratch buffer a wide backward call on the card needs
+    (the kernel library's own count, so it builds the library): the state's
+    gradient after each chunk, the gated scores P and R, and the tiles'
+    partial sums. 0.15 GB at xlstm-1.3b's training shape."""
+    out = ctypes.c_longlong()
+    err = _build.load().repro_ssd_scan_wide_bwd_scratch(
+        B, S, H, dk, dv, chunk, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"no wide backward at B {B}, S {S}, H {H}, dk {dk}, "
+                         f"dv {dv}, chunk {chunk}")
+    return out.value
+
+
 def _launch_fwd(q, k, v, a, i, h0, chunk: int, with_states: bool):
     """One K4 call on the card → (y, final state, and the state before each
     chunk (B, nc, H, dk, dv) f32 when ``with_states``, else None): the
-    narrow kernel's one launch, or the wide path's three (``is_wide``),
-    which keeps no states and so raises when they are asked for."""
+    narrow kernel's one launch, or the wide path's three (``is_wide``)."""
     _check_card(q, k, v, chunk)
     B, S, H, dk = q.shape
     dv = v.shape[-1]
-    wide = is_wide(dk, dv, chunk)
-    if wide and with_states:
-        raise NotImplementedError(_NO_WIDE_BWD)
     dev = q.device
     f32 = torch.float32
     a32 = a.detach().to(f32).contiguous()
@@ -347,19 +358,17 @@ def _launch_fwd(q, k, v, a, i, h0, chunk: int, with_states: bool):
     h = torch.empty((B, H, dk, dv), dtype=f32, device=dev)
     ptrs = [_build.ptr(x) for x in (q, k, v, a32, i32, h0)]
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    states = None
-    if wide:
+    states = torch.empty((B, S // chunk, H, dk, dv), dtype=f32,
+                         device=dev) if with_states else None
+    if is_wide(dk, dv, chunk):
         # the bf16 parts of q, k, v, w·v, the gated scores and the state
         # before every chunk, which the three launches pass on
         nbytes = wide_scratch_bytes(B, S, H, dk, dv, chunk)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         _build.launch("repro_ssd_scan_wide", dev, *ptrs, B, S, H, dk, dv,
                       chunk, *strides, _build.ptr(scratch), nbytes,
-                      _build.ptr(y), _build.ptr(h))
+                      _build.ptr(y), _build.ptr(h), _build.ptr(states))
     else:
-        if with_states:
-            states = torch.empty((B, S // chunk, H, dk, dv), dtype=f32,
-                                 device=dev)
         _build.launch("repro_ssd_scan", dev, *ptrs,
                       int(v.dtype == torch.bfloat16), B, S, H, dk, dv, chunk,
                       *strides, _build.ptr(y), _build.ptr(h),
@@ -385,11 +394,16 @@ class _SSDScan(torch.autograd.Function):
             y, h, states = _launch_fwd(q, k, v, a, i, h0, chunk, True)
         ctx.save_for_backward(q, k, v, a, i, h0, states)
         ctx.chunk = chunk
+        # an unused final state's gradient stays None (no zeros are made,
+        # and the kernel reads no dh_final)
+        ctx.set_materialize_grads(False)
         return y, h
 
     @staticmethod
     def backward(ctx, dy, dh):
         q, k, v, a, i, h0, states = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
         dq, dk, dv, da, di, dh0 = ssd_scan_bwd(
             q, k, v, a, i, dy, dh, chunk=ctx.chunk, initial_state=h0,
             states=states)
@@ -416,9 +430,8 @@ def ssd_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     When autograd records (grad mode on and an input that requires grad),
     the call goes through ``_SSDScan``: the forward also writes the state
     before each chunk, and the backward launches the backward kernel on
-    the card (counted in ``.bwd_launches``) or runs the plain backward on
-    the CPU. At wide shapes on the card it raises: that backward waits for
-    the xLSTM training slice."""
+    the card (counted in ``.bwd_launches``; the wide backward at wide
+    shapes) or runs the plain backward on the CPU."""
     chunk = int(chunk)
     _check(q, k, v, a, i, chunk, initial_state)
     if torch.is_grad_enabled() and any(
@@ -557,13 +570,14 @@ def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
 def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
                  initial_state=None, states=None):
     """The backward of ``ssd_scan`` → (dq, dk, dv, da, di, dh0). On CUDA
-    tensors it launches the backward kernel (``csrc/ssd_scan_bwd.cu``,
-    counted in ``ssd_scan.bwd_launches``) and needs ``states``, the states
-    before each chunk that the forward wrote; dq, dk and dv come in the
-    inputs' dtype, da, di and dh0 in f32, and dq, dk per head even where q
-    and k are head-stride-0 views. On CPU tensors it returns the plain
-    backward, ``ssd_scan_bwd_ref`` (all f32). At wide shapes (``is_wide``)
-    the card has no backward kernel yet and this raises."""
+    tensors it launches the backward kernel (``csrc/ssd_scan_bwd.cu``, or
+    at wide shapes (``is_wide``) the wide backward's ``WIDE_BWD_LAUNCHES``
+    launches, ``csrc/ssd_scan_wide_bwd.cu``, f32 only; either counted once
+    in ``ssd_scan.bwd_launches``) and needs ``states``, the states before
+    each chunk that the forward wrote; dq, dk and dv come in the inputs'
+    dtype, da, di and dh0 in f32, and dq, dk per head even where q and k
+    are head-stride-0 views. On CPU tensors it returns the plain backward,
+    ``ssd_scan_bwd_ref`` (all f32)."""
     chunk = int(chunk)
     _check(q, k, v, a, i, chunk, initial_state)
     B, S, H, dk = q.shape
@@ -574,8 +588,6 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
         return ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final, chunk=chunk,
                                 initial_state=initial_state, states=states)
     _check_card(q, k, v, chunk)
-    if is_wide(dk, dv, chunk):
-        raise NotImplementedError(_NO_WIDE_BWD)
     nc = S // chunk
     if states is None or tuple(states.shape) != (B, nc, H, dk, dv) or \
             states.dtype != torch.float32 or not states.is_contiguous():
@@ -594,13 +606,18 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     da = torch.empty((B, S, H), dtype=f32, device=dev)
     di = torch.empty((B, S, H), dtype=f32, device=dev)
     dh0 = torch.empty((B, H, dk, dv), dtype=f32, device=dev)
-    _build.launch("repro_ssd_scan_bwd", dev, _build.ptr(q), _build.ptr(k),
-                  _build.ptr(v), _build.ptr(a32), _build.ptr(i32),
-                  _build.ptr(states), _build.ptr(dy), _build.ptr(dhf),
-                  int(v.dtype == torch.bfloat16), B, S, H, dk, dv, chunk,
-                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  _build.ptr(dq), _build.ptr(dk_), _build.ptr(dv_),
-                  _build.ptr(da), _build.ptr(di), _build.ptr(dh0))
+    ins = [_build.ptr(x) for x in (q, k, v, a32, i32, states, dy, dhf)]
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    outs = [_build.ptr(x) for x in (dq, dk_, dv_, da, di, dh0)]
+    if is_wide(dk, dv, chunk):
+        nbytes = wide_bwd_scratch_bytes(B, S, H, dk, dv, chunk)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        _build.launch("repro_ssd_scan_wide_bwd", dev, *ins, B, S, H, dk, dv,
+                      chunk, *strides, _build.ptr(scratch), nbytes, *outs)
+    else:
+        _build.launch("repro_ssd_scan_bwd", dev, *ins,
+                      int(v.dtype == torch.bfloat16), B, S, H, dk, dv, chunk,
+                      *strides, *outs)
     ssd_scan.bwd_launches += 1
     return dq, dk_, dv_, da, di, dh0
 
@@ -666,17 +683,20 @@ def bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
 
 def bwd_hbm_bytes(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
                   itemsize: int, *, qk_per_head: bool = False,
-                  qk_itemsize: Optional[int] = None) -> dict:
+                  qk_itemsize: Optional[int] = None,
+                  dh_final: bool = True) -> dict:
     """HBM bytes one backward call must move: q and k once (as in
     ``hbm_bytes``: one row for all heads unless ``qk_per_head``, in
     ``qk_itemsize``, default ``itemsize``), v and dy once, the f32 gates
-    once, the f32 states before each chunk and dh_final once; dq and dk (per
-    head, in q's item size), dv, the f32 da and di and dh0 written once."""
+    once, the f32 states before each chunk and dh_final once (where it is
+    given); dq and dk (per head, in q's item size), dv, the f32 da and di
+    and dh0 written once."""
     qk_size = qk_itemsize or itemsize
     qk = 2 * B * S * dk * (H if qk_per_head else 1) * qk_size
     v_dy = 2 * B * S * H * dv * itemsize
     gates = 2 * B * S * H * 4
-    states = (B * (S // chunk) * H + 2 * B * H) * dk * dv * 4
+    states = (B * (S // chunk) * H + (2 if dh_final else 1) * B * H) * \
+        dk * dv * 4
     grads = B * S * H * (2 * dk * qk_size + dv * itemsize) + \
         2 * B * S * H * 4
     return {"qk": qk, "v_dy": v_dy, "gates": gates, "states": states,
@@ -697,7 +717,8 @@ def bwd_bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
               itemsize: int, hbm_bytes_per_s: float,
               tensor_flops_per_s: float, f32_flops_per_s: float, *,
               qk_per_head: bool = False,
-              qk_itemsize: Optional[int] = None) -> dict:
+              qk_itemsize: Optional[int] = None,
+              dh_final: bool = True) -> dict:
     """The least time (ms) the card could take for one backward call, as
     ``bound``: the larger of its minimum HBM bytes over the memory rate and
     its flops over the bf16 tensor cores' dense rate;
@@ -705,7 +726,8 @@ def bwd_bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
     this kernel does them."""
     t_bytes = bwd_hbm_bytes(B, S, H, dk, dv, chunk, itemsize,
                             qk_per_head=qk_per_head,
-                            qk_itemsize=qk_itemsize)["minimum"] / \
+                            qk_itemsize=qk_itemsize,
+                            dh_final=dh_final)["minimum"] / \
         hbm_bytes_per_s * 1e3
     fl = bwd_flops(B, S, H, dk, dv, chunk)
     t_ops = fl / tensor_flops_per_s * 1e3

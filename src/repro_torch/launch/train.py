@@ -4,11 +4,11 @@ Two modes:
   * ``--arch paper-net`` — the paper's own experiment: MNIST-surrogate CNN,
     SGD(lr=0.01, momentum=0.5), N workers in clusters, blockchain on/off.
   * an LLM arch (the dense ``smollm-135m``, ``yi-6b``, ``h2o-danube-1.8b``,
-    the MoE ``qwen2-moe-a2.7b``, ``olmoe-1b-7b`` or the hybrid
-    ``zamba2-7b``) — federated LM training on synthetic
+    the MoE ``qwen2-moe-a2.7b``, ``olmoe-1b-7b``, the hybrid ``zamba2-7b``
+    or xLSTM's ``xlstm-1.3b``) — federated LM training on synthetic
     token streams, the smoke-size variant by default, the full config with
     ``--full`` (which also turns on rematerialisation per layer, or per
-    super-layer for the hybrid, as the reference does).
+    super-layer for the hybrid and xLSTM, as the reference does).
 
 It runs on the card unless ``--device cpu`` is given. The flags and the
 printed lines are the reference's, plus ``--device``; ``run(args)`` is the
@@ -35,10 +35,10 @@ from repro_torch.core import async_sim
 from repro_torch.core.protocol import SDFLBProtocol
 from repro_torch.data.datasets import make_federated_mnist, synthetic_tokens
 
-# the archs this launcher trains: the LLMs (dense and MoE decoders and
-# the hybrid) and the CNN
+# the archs this launcher trains: the LLMs (dense and MoE decoders, the
+# hybrid and xLSTM) and the CNN
 TRAIN_ARCHS = [a for a in ARCH_IDS if get_config(a).family
-               in ("dense", "moe", "hybrid")] + ["paper-net"]
+               in ("dense", "moe", "hybrid", "ssm")] + ["paper-net"]
 
 
 def build_protocol(args):

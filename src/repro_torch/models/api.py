@@ -3,9 +3,10 @@ xLSTM (``ssm``) branches of ``repro.models.api``.
 
     init(cfg, gen, device)                     -> params (flat dict)
     loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)
-                                                  [cnn, dense, moe, hybrid]
+                                                  [cnn, dense, moe, hybrid,
+                                                   ssm]
     lm_loss_fn(cfg)(params, batch)             -> (loss, metrics)
-                                                  [dense, moe, hybrid]
+                                                  [dense, moe, hybrid, ssm]
     forward(params, cfg, batch)                -> (logits, aux)
                                                   [dense, moe, hybrid, ssm]
     prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
@@ -20,8 +21,8 @@ Decoder batches are ``{tokens (B, S)}`` (``{tokens, labels}``, each
 loss adds and reports), the hybrid (zamba2) through ``hybrid``, xLSTM
 (the ``ssm`` family) through ``xlstm``; the other LLM families wait for
 their slices (``transformer.check_ported`` raises). The hybrid trains
-through K4 and its backward (``kernels.ssd_scan``); xLSTM is served only,
-and its losses raise until the xLSTM training slice.
+through K4 and its backward (``kernels.ssd_scan``), xLSTM through K4's
+wide path and its backward and the sLSTM scan's VJP (``ssm._SLSTMScan``).
 """
 from __future__ import annotations
 
@@ -179,23 +180,19 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
                kv_chunk: int = 1024):
     """One decoder's causal-LM loss, the LM branch of the reference's
     ``loss_fn``: f(params, {tokens (B, S), labels (B, S)}) -> (loss (),
-    {"loss", "aux"}), for the dense and MoE decoders and the hybrid (head
-    ``lm_head``, offset 0). ``aux`` is the MoE layers' load-balance and
-    z-loss, summed over the layers (0 for the other families). The ``ssm``
-    family (xLSTM) raises: its training waits for the xLSTM slice."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            "the xLSTM (ssm) loss is not ported yet: it comes with the "
-            "xLSTM training slice (the sLSTM scan's VJP and K4's backward "
-            "at mLSTM's heads); the port serves xLSTM only")
-    hybrid = cfg.family == "hybrid"
-    if not hybrid:
+    {"loss", "aux"}), for the dense and MoE decoders, the hybrid and xLSTM
+    (the last two: head ``lm_head``, offset 0). ``aux`` is the MoE layers'
+    load-balance and z-loss, summed over the layers (0 for the other
+    families)."""
+    lm_head_forward = {"hybrid": HY.hybrid_forward,
+                       "ssm": XL.xlstm_forward}.get(cfg.family)
+    if lm_head_forward is None:
         TF.check_ported(cfg)
 
     def f(params: Params, batch: Dict[str, torch.Tensor]):
         kw = dict(remat=remat, kv_chunk=kv_chunk, return_hidden=True)
-        if hybrid:
-            x, aux = HY.hybrid_forward(params, cfg, batch["tokens"], **kw)
+        if lm_head_forward is not None:
+            x, aux = lm_head_forward(params, cfg, batch["tokens"], **kw)
             head = params["lm_head"]
         else:
             x, aux = TF.decoder_forward(params, cfg, batch["tokens"], **kw)
@@ -213,9 +210,10 @@ def loss_fn(cfg: ModelConfig, *, remat: bool = False, kv_chunk: int = 1024):
     """Returns f(params_w, batch, mask=None) -> (loss (W,), metrics), every
     worker's loss on its own batch. CNN: ``mask`` is the conv2 dropout keep
     mask (``cnn.dropout_mask``); None evaluates without dropout; metrics
-    {"loss", "accuracy"}. Dense decoders and the hybrid: batch leaves (W,
-    B, S), workers one after another through ``lm_loss_fn`` (``remat``,
-    ``kv_chunk``), no dropout; metrics {"loss", "aux"}, each (W,)."""
+    {"loss", "accuracy"}. Dense and MoE decoders, the hybrid and xLSTM:
+    batch leaves (W, B, S), workers one after another through
+    ``lm_loss_fn`` (``remat``, ``kv_chunk``), no dropout; metrics {"loss",
+    "aux"}, each (W,)."""
     if cfg.family == "cnn":
         def f_cnn(params_w: Params, batch: Dict[str, torch.Tensor],
                   mask: Optional[torch.Tensor] = None):

@@ -18,11 +18,13 @@ cast back, as in the reference.
 mLSTM runs the same core at its own heads (dk = dh, dv = dh + 1: v with
 the normalizer's ones column appended), which on the card is K4's wide
 path; it hands K4 f32 q and k (upcast from the model dtype, exact), as the
-reference's core upcasts them. sLSTM is a strict scan over the sequence, a
+reference's core upcasts them; under grad its backward is K4's wide
+backward kernel on the card. sLSTM is a strict scan over the sequence, a
 Python loop of eager ops here as ``lax.scan`` is in the reference; the
-reference has no kernel there. Only their serving paths are ported: the
-reference's hand-written VJP of the sLSTM scan (``_slstm_scan_bwd``) and
-K4's backward at mLSTM's heads wait for the xLSTM training slice.
+reference has no kernel there. Under grad the loop is ``_SLSTMScan``, the
+reference's hand-written VJP of the scan (``_slstm_scan``'s
+``custom_vjp``): the backward walks the steps in reverse with the gate
+derivatives written out.
 """
 from __future__ import annotations
 
@@ -318,10 +320,11 @@ def init_slstm(gen: torch.Generator, d_model: int, num_heads: int, dtype,
     }
 
 
-def _slstm_gates(g, c, n, m, num_heads):
-    """Gate math given pre-activations g: (B, 4d). The stabilizer m_new is
-    the larger of a head's largest forget pre-activation plus m and its
-    largest input pre-activation; h is exactly invariant to it."""
+def _gate_values(g, m, num_heads):
+    """The gates of pre-activations g: (B, 4d) → (i', f', z, o, m_new). The
+    stabilizer m_new is the larger of a head's largest forget
+    pre-activation plus m and its largest input pre-activation; h is
+    exactly invariant to it."""
     B = g.shape[0]
     d = g.shape[1] // 4
     dh = d // num_heads
@@ -333,8 +336,13 @@ def _slstm_gates(g, c, n, m, num_heads):
     m_new = torch.maximum(fi, ii)
     i_p = mathfn.exp(gi_h - m_new[..., None]).reshape(B, d)
     f_p = mathfn.exp(gf_h + m[:, :, None] - m_new[:, :, None]).reshape(B, d)
-    z = mathfn.tanh(gz)
-    o = torch.sigmoid(go)
+    return i_p, f_p, mathfn.tanh(gz), torch.sigmoid(go), m_new
+
+
+def _slstm_gates(g, c, n, m, num_heads):
+    """Gate math given pre-activations g: (B, 4d) → (c, n, h, m) after the
+    step."""
+    i_p, f_p, z, o, m_new = _gate_values(g, m, num_heads)
     c_new = f_p * c + i_p * z
     n_new = f_p * n + i_p
     h_new = o * c_new / torch.clamp(n_new, min=1e-6)
@@ -355,11 +363,94 @@ def _slstm_cell(r32, b_gates, num_heads, x_t, carry):
     return _slstm_gates(g, c, n, m, num_heads)
 
 
+def _slstm_gates_vjp(g, c, n, m, num_heads, dc_new, dn_new, dh_new):
+    """The VJP of ``_slstm_gates`` in (g, c, n) with m held fixed (the
+    reference stops the stabilizer's gradient; m_new depends on g only
+    through it): given the cotangents of c_new, n_new and h_new, returns
+    (dg, dc, dn). The derivatives are XLA's: tanh' = 1 - z², sigmoid' =
+    o (1 - o), and the clamp of n_new at 1e-6 passes its whole gradient
+    above, half at, and none below it (``jnp.maximum``)."""
+    i_p, f_p, z, o, _ = _gate_values(g, m, num_heads)
+    c_new = f_p * c + i_p * z
+    n_new = f_p * n + i_p
+    den = torch.clamp(n_new, min=1e-6)
+    # h_new = (o c_new) / den
+    q = dh_new / den
+    do = q * c_new
+    dc_t = dc_new + q * o
+    pass_n = (n_new > 1e-6).float() + 0.5 * (n_new == 1e-6).float()
+    dn_t = dn_new - dh_new * (o * c_new) / (den * den) * pass_n
+    dgi = (dc_t * z + dn_t) * i_p
+    dgf = (dc_t * c + dn_t * n) * f_p
+    dgz = dc_t * i_p * (1.0 - z * z)
+    dgo = do * o * (1.0 - o)
+    return (torch.cat([dgi, dgf, dgz, dgo], dim=-1), dc_t * f_p,
+            dn_t * f_p)
+
+
+class _SLSTMScan(torch.autograd.Function):
+    """The sLSTM scan under autograd, the reference's ``_slstm_scan`` with
+    its ``custom_vjp``: (r_gates, b_gates, pre (B, S, 4d) f32, the carry
+    (c, n, h, m) f32) → (c, n, h, m after the last step, hs (B, S, d)). The
+    forward is ``_slstm_cell``'s loop and keeps the carry before each step;
+    the backward walks the steps in reverse, the gate derivatives written
+    out (``_slstm_gates_vjp``: a host loop of eager ops, no autograd graph
+    a step), accumulating dR batch-expanded (B, H, dh, 4 dh) and db (B, 4d)
+    in f32, each reduced over the batch once after the loop as the
+    reference does. m gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, r_gates, b_gates, pre, num_heads, c, n, h, m):
+        r32 = r_gates.float()
+        carry = (c, n, h, m)
+        before, hs = [], []
+        for t in range(pre.shape[1]):
+            before.append(carry)
+            carry = _slstm_cell(r32, b_gates, num_heads, pre[:, t], carry)
+            hs.append(carry[2])
+        ctx.num_heads = num_heads
+        ctx.save_for_backward(r_gates, b_gates, pre,
+                              *(torch.stack(x, dim=1) for x in zip(*before)))
+        ctx.mark_non_differentiable(carry[3])
+        return (*carry, torch.stack(hs, dim=1))
+
+    @staticmethod
+    def backward(ctx, dc, dn, dh, dm, dhs):
+        r_gates, b_gates, pre, cs, ns, hs_before, ms = ctx.saved_tensors
+        H = ctx.num_heads
+        B, S, d4 = pre.shape
+        d = d4 // 4
+        dh_ = d // H
+        r32 = r_gates.float()
+        f32 = dict(dtype=torch.float32, device=pre.device)
+        dc, dn, dh = (torch.zeros((B, d), **f32) if x is None else x.float()
+                      for x in (dc, dn, dh))
+        dr = torch.zeros((B, H, dh_, 4 * dh_), **f32)
+        db = torch.zeros((B, d4), **f32)
+        d_pre = torch.empty((B, S, d4), **f32)
+        for t in reversed(range(S)):
+            hh = hs_before[:, t].reshape(B, H, dh_)
+            rec = torch.einsum("bhd,hde->bhe", hh, r32).reshape(B, d4)
+            g = pre[:, t] + rec + b_gates
+            dh_t = dh if dhs is None else dh + dhs[:, t]
+            dg, dc, dn = _slstm_gates_vjp(g, cs[:, t], ns[:, t], ms[:, t], H,
+                                          dc, dn, dh_t)
+            d_pre[:, t] = dg
+            dg_h = dg.reshape(B, H, 4 * dh_)
+            dh = torch.einsum("bhe,hde->bhd", dg_h, r32).reshape(B, d)
+            dr.addcmul_(hh[..., :, None], dg_h[..., None, :])
+            db += dg
+        return (dr.sum(dim=0).to(r_gates.dtype),
+                db.sum(dim=0).to(b_gates.dtype), d_pre.to(pre.dtype), None,
+                dc, dn, dh, None)
+
+
 def apply_slstm(params: Params, x, num_heads: int, *, carry=None,
                 return_state: bool = False):
     """x: (B,S,d). Sequential over S (a Python loop of ``_slstm_cell``,
-    the reference's ``lax.scan``). Returns out (+ the carry (c, n, h, m),
-    f32, when streaming or ``return_state``). The FFN's GELU is the tanh
+    the reference's ``lax.scan``; ``_SLSTMScan``, its hand-written VJP, when
+    autograd records). Returns out (+ the carry (c, n, h, m), f32, when
+    streaming or ``return_state``). The FFN's GELU is the tanh
     approximation, ``jax.nn.gelu``'s default."""
     B, S, d = x.shape
     stream = carry is not None or return_state
@@ -370,13 +461,21 @@ def apply_slstm(params: Params, x, num_heads: int, *, carry=None,
                                             dtype=torch.float32))
     else:
         carry = tuple(t.float() for t in carry)
-    r32 = params["r_gates"].float()
-    hs = []
-    for t in range(S):
-        carry = _slstm_cell(r32, params["b_gates"], num_heads, pre[:, t],
-                            carry)
-        hs.append(carry[2])
-    y = torch.stack(hs, dim=1).to(x.dtype)                  # (B,S,d)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (pre, params["r_gates"],
+                                      params["b_gates"], *carry)):
+        *carry, hs = _SLSTMScan.apply(params["r_gates"], params["b_gates"],
+                                      pre, num_heads, *carry)
+        carry = tuple(carry)
+    else:
+        r32 = params["r_gates"].float()
+        hs = []
+        for t in range(S):
+            carry = _slstm_cell(r32, params["b_gates"], num_heads,
+                                pre[:, t], carry)
+            hs.append(carry[2])
+        hs = torch.stack(hs, dim=1)
+    y = hs.to(x.dtype)                                      # (B,S,d)
     y = rms_norm(y, params["norm"])
     u = y @ params["ffn_up"]
     ffn = params["ffn_down"].shape[0]

@@ -18,15 +18,18 @@ B, H, dh, dh + 1) f32, conv (n_super, n_m, B, cw - 1, d_inner)} and ``s``
 {c, n, h (n_super, B, d), m (n_super, B, H)}, all f32 but conv; prefill
 fills it and ``xlstm_decode_step`` writes it in place.
 
-Serving only: the loss (``api.lm_loss_fn``) raises for this family until
-the xLSTM training slice, which brings the sLSTM scan's hand-written VJP
-and K4's backward at mLSTM's heads.
+Training goes through ``api.lm_loss_fn``: the mLSTM blocks through K4's
+``autograd.Function`` (on the card the wide forward and its backward
+kernel), the sLSTM block through ``ssm._SLSTMScan``, the reference's
+hand-written VJP of its scan; ``remat`` checkpoints each super-layer, as
+the reference's ``jax.checkpoint`` of its scan body.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -84,43 +87,53 @@ def init_xlstm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
     return params
 
 
+def _super_layer(cfg: ModelConfig, mlayers, sp: Params, x, cache=None,
+                 n: int = 0):
+    """One super-layer's forward: the mLSTM blocks, then the sLSTM block,
+    each residual. With a prefill ``cache`` every block's state after the
+    prompt is written into it at super-layer ``n``."""
+    for j, lp in enumerate(mlayers):
+        h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
+        out = SM.apply_mlstm(lp["mlstm"], h, cfg.ssm,
+                             chunk=cfg.ssm.chunk_size,
+                             return_state=cache is not None)
+        if cache is not None:
+            out, (cache["m"]["ssm"][n, j], cache["m"]["conv"][n, j]) = out
+        x = x + out
+    h = L.rms_norm(x, sp["norm"], cfg.norm_eps)
+    out = SM.apply_slstm(sp["slstm"], h, cfg.num_heads,
+                         return_state=cache is not None)
+    if cache is not None:
+        out, carry = out
+        for name, t in zip("cnhm", carry):
+            cache["s"][name][n] = t
+    return x + out
+
+
 def xlstm_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  *, prefill_cache_len: int = 0, return_hidden: bool = False,
-                  **_):
+                  *, remat: bool = False, prefill_cache_len: int = 0,
+                  return_hidden: bool = False, **_):
     """Returns (logits (B, S, V), 0.0); with ``return_hidden`` the
     final-normed hidden states instead. In prefill mode
     (``prefill_cache_len > 0``) returns (last_logits (B, 1, V), cache):
     every block's state after the prompt (the cache has no per-position
-    leaves, so its length does not enter)."""
+    leaves, so its length does not enter). ``remat`` checkpoints each
+    super-layer when autograd records (training): its forward, K4 and the
+    sLSTM scan included, runs again in backward."""
     n_m, n_super = _split_layers(cfg)
     x = params["embed"][tokens]
     B = tokens.shape[0]
     prefill = prefill_cache_len > 0
+    remat = remat and torch.is_grad_enabled() and not prefill
     cache = make_xlstm_cache(cfg, B, x.device) if prefill else None
     for n in range(n_super):
-        for j in range(n_m):
-            lp = L.param_group(params, M, (n, j))
-            h = L.rms_norm(x, lp["norm"], cfg.norm_eps)
-            if prefill:
-                out, (ssm_new, conv_new) = SM.apply_mlstm(
-                    lp["mlstm"], h, cfg.ssm, chunk=cfg.ssm.chunk_size,
-                    return_state=True)
-                cache["m"]["ssm"][n, j] = ssm_new
-                cache["m"]["conv"][n, j] = conv_new
-            else:
-                out = SM.apply_mlstm(lp["mlstm"], h, cfg.ssm,
-                                     chunk=cfg.ssm.chunk_size)
-            x = x + out
+        mlayers = [L.param_group(params, M, (n, j)) for j in range(n_m)]
         sp = L.param_group(params, S_, n)
-        h = L.rms_norm(x, sp["norm"], cfg.norm_eps)
-        if prefill:
-            out, carry = SM.apply_slstm(sp["slstm"], h, cfg.num_heads,
-                                        return_state=True)
-            for name, t in zip("cnhm", carry):
-                cache["s"][name][n] = t
+        if remat:
+            x = checkpoint(_super_layer, cfg, mlayers, sp, x,
+                           use_reentrant=False, preserve_rng_state=False)
         else:
-            out = SM.apply_slstm(sp["slstm"], h, cfg.num_heads)
-        x = x + out
+            x = _super_layer(cfg, mlayers, sp, x, cache, n)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if prefill:
         return x[:, -1:, :] @ params["lm_head"], cache

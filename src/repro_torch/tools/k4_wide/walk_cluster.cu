@@ -266,7 +266,8 @@ extern "C" int repro_ssd_scan_wide(
   const int ntt = rt::cdiv(Q, kT);
   const auto st = static_cast<cudaStream_t>(stream);
   static uint32_t raised[4] = {};
-  cudaError_t err = rt::raise_smem_once(ssd_wide_chunks, kSmem1, raised[0]);
+  cudaError_t err =
+      rt::raise_smem_once(ssd_wide_chunks<false>, kSmem1, raised[0]);
   if (err == cudaSuccess)
     err = rt::raise_smem_once(ssd_wide_walk, kWalkSmem, raised[1]);
   if (err == cudaSuccess)
@@ -275,8 +276,8 @@ extern "C" int repro_ssd_scan_wide(
   ssd_wide_split<<<dim3((unsigned)(bhn * c.J()), 3), kThreads, 0, st>>>(
       c, a, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, vec_qk, vec_v);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  ssd_wide_chunks<<<(unsigned)(bhn * (ntt * (ntt + 1) / 2)), kThreads,
-                    kSmem1, st>>>(c, 0, h_out);
+  ssd_wide_chunks<false><<<(unsigned)(bhn * (ntt * (ntt + 1) / 2)),
+                           kThreads, kSmem1, st>>>(c, 0, h_out, nullptr);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   ssd_wide_walk<<<(unsigned)((long long)B * H * rt::cdiv(c.dvp(), kT) * kC),
                   kThreads, kWalkSmem, st>>>(c, y, h_out);

@@ -476,9 +476,8 @@ def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
     """A CUDA tensor the kernels cannot take raises; it never runs the plain
     version instead: a chunk beyond the wide path's 256, dk beyond its
     1024, bf16 at a wide shape (the wide path is f32 only), a half dtype,
-    rows that are not contiguous; and a wide shape whose gradient is wanted
-    (forward under grad, or the backward itself), which waits for the
-    xLSTM training slice."""
+    rows that are not contiguous; and a wide backward without the
+    forward's states."""
     q, k, v, a, i, _ = _ssd_inputs(1, 512, 2, 16, 16, "model", False,
                                    "float32", cuda)
     before = (ssd_scan.ssd_scan.launches, ssd_scan.ssd_scan.bwd_launches)
@@ -496,10 +495,7 @@ def test_ssd_scan_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="rows"):
         ssd_scan.ssd_scan(q.transpose(2, 3).contiguous().transpose(2, 3), k,
                           v, a, i, chunk=128)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ssd_scan.ssd_scan(wide.clone().requires_grad_(True), wide, v, a, i,
-                          chunk=128)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="states"):
         ssd_scan.ssd_scan_bwd(wide, wide, v, a, i, torch.zeros_like(v),
                               chunk=256, states=None)
     assert (ssd_scan.ssd_scan.launches,
@@ -634,6 +630,127 @@ def test_ssd_scan_wide_is_two_deterministic_launches_on_card(cuda):
     assert enqueued == ["cudaLaunchKernel"] * (4 * ssd_scan.WIDE_LAUNCHES), \
         enqueued
     assert all("ssd_wide" in n for n in device), device
+
+
+# K4's wide backward (``csrc/ssd_scan_wide_bwd.cu``) against
+# ssd_scan_bwd_ref: (B, S, H, dk, dv, chunk, gates, initial state and
+# dh_final). The smoke config's mLSTM shape (dk 128, dv 129: a 128-wide
+# column tile and one of a single column; chunk 64, two chunks) with the
+# model's gates and gentle ones, one full-width head of xlstm-1.3b's
+# training shape (dk 1024, dv 1025, chunk 256, two chunks), and sizes that
+# are no multiple of the 128 x 128 tiles (dk 200, dv 77, chunk 96).
+SSD_WIDE_BWD_SMOKE = (2, 128, 4, 128, 129, 64)
+SSD_WIDE_BWD_CASES = [(*SSD_WIDE_BWD_SMOKE, "mlstm", False),
+                      (*SSD_WIDE_BWD_SMOKE, "gentle", True),
+                      (1, 512, 1, 1024, 1025, 256, "mlstm", True),
+                      (2, 192, 3, 200, 77, 96, "gentle", True)]
+
+
+def _wide_bwd_case(B, S, H, dk, dv, chunk, gates, init, dev):
+    """mLSTM's operands, the wide forward's states on the card, dy and
+    dh_final, and the plain backward's f32 result on them."""
+    q, k, v, a, i, h0 = _wide_inputs(B, S, H, dk, dv, gates, init, dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    dy = torch.randn(v.shape, generator=gen, device=dev)
+    dh = torch.randn((B, H, dk, dv), generator=gen, device=dev) \
+        if init else None
+    _, _, states = ssd_scan._launch_fwd(q, k, v, a, i, h0, chunk, True)
+    want = ssd_scan.ssd_scan_bwd_ref(q, k, v, a, i, dy, dh, chunk=chunk,
+                                     initial_state=h0, states=states)
+    return (q, k, v, a, i, dy, dh), h0, states, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,dk,dv,chunk,gates,init", [
+    pytest.param(*c, id="-".join(map(str, c))) for c in SSD_WIDE_BWD_CASES])
+def test_ssd_scan_wide_bwd_matches_plain_backward_on_card(
+        cuda, B, S, H, dk, dv, chunk, gates, init):
+    """The wide forward's f32 states within the forward's check of the
+    plain forward's; dq, dk, dv, da, di and dh0 within
+    ``ssd_scan.bwd_margins`` of the plain backward's f32 result on the same
+    card inputs and states, one backward call counted."""
+    assert ssd_scan.is_wide(dk, dv, chunk)
+    args, h0, states, want = _wide_bwd_case(B, S, H, dk, dv, chunk, gates,
+                                            init, cuda)
+    q, k, v, a, i = args[:5]
+    _, _, want_states = ssd_scan.ssd_scan_ref(
+        q, k, v, a, i, chunk=chunk, initial_state=h0, return_states=True)
+    assert ssd_scan.excess(states, want_states) <= 0
+    before = ssd_scan.ssd_scan.bwd_launches
+    got = ssd_scan.ssd_scan_bwd(*args, chunk=chunk, initial_state=h0,
+                                states=states)
+    torch.cuda.synchronize()
+    assert ssd_scan.ssd_scan.bwd_launches == before + 1
+    assert [g.dtype for g in got] == [torch.float32] * 6
+    assert got[2].shape == (B, S, H, dv) and got[5].shape == (B, H, dk, dv)
+    assert all(torch.isfinite(g).all() for g in got)
+    margins = ssd_scan.bwd_margins(got, want)
+    assert max(margins.values()) <= 1, margins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gates", ["gentle", "mlstm"])
+def test_ssd_wide_bwd_tolerance_rejects_planted_faults_on_card(cuda, gates):
+    """At the smoke shape each of ``BWD_FAULTS`` fails the check the wide
+    backward passes above, by a margin > 1."""
+    args, h0, states, want = _wide_bwd_case(*SSD_WIDE_BWD_SMOKE, gates, True,
+                                            cuda)
+    for fault in ssd_scan.BWD_FAULTS:
+        got = ssd_scan.ssd_scan_bwd_ref(*args, chunk=SSD_WIDE_BWD_SMOKE[-1],
+                                        initial_state=h0, states=states,
+                                        fault=fault)
+        assert max(ssd_scan.bwd_margins(got, want).values()) > 1, fault
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wide_bwd_is_deterministic_on_card(cuda):
+    """Two calls give the same bits; 4 calls make 4 x ``WIDE_BWD_LAUNCHES``
+    kernel launches and no copy or memset, and every device record the
+    profiler keeps is one of the wide backward's kernels."""
+    args, h0, states, _ = _wide_bwd_case(*SSD_WIDE_BWD_SMOKE, "mlstm", True,
+                                         cuda)
+    chunk = SSD_WIDE_BWD_SMOKE[-1]
+    one = ssd_scan.ssd_scan_bwd(*args, chunk=chunk, initial_state=h0,
+                                states=states)
+    two = ssd_scan.ssd_scan_bwd(*args, chunk=chunk, initial_state=h0,
+                                states=states)
+    assert all(torch.equal(x, y) for x, y in zip(one, two))
+    enqueued, device = _build.launch_records(
+        lambda: ssd_scan.ssd_scan_bwd(*args, chunk=chunk, initial_state=h0,
+                                      states=states))
+    assert enqueued == ["cudaLaunchKernel"] * (
+        4 * ssd_scan.WIDE_BWD_LAUNCHES), enqueued
+    assert all("ssd_wide_bwd" in n for n in device), device
+
+
+@pytest.mark.cuda
+def test_ssd_scan_wide_autograd_on_card_matches_autograd_of_plain(cuda):
+    """``ssd_scan`` under grad at a wide shape on the card (the wide forward
+    with its states, then the wide backward) against ``torch.autograd``
+    through the plain forward on the same card inputs, with an initial
+    state and a loss on the final state."""
+    B, S, H, dk, dv, chunk = SSD_WIDE_BWD_SMOKE
+    q, k, v, a, i, h0 = _wide_inputs(B, S, H, dk, dv, "mlstm", True, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dy = torch.randn(v.shape, generator=gen, device=cuda)
+    dh = torch.randn(h0.shape, generator=gen, device=cuda)
+    base = [x.detach().clone().requires_grad_(True)
+            for x in (q, k, v, a, i, h0)]
+
+    def run(fn):
+        for x in base:
+            x.grad = None
+        y, h = fn(*base[:5], chunk=chunk, initial_state=base[5])
+        torch.autograd.backward([y, h], [dy, dh])
+        return [x.grad.clone() for x in base]
+    before = (ssd_scan.ssd_scan.launches, ssd_scan.ssd_scan.bwd_launches)
+    got = run(ssd_scan.ssd_scan)
+    torch.cuda.synchronize()
+    assert (ssd_scan.ssd_scan.launches, ssd_scan.ssd_scan.bwd_launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = run(ssd_scan.ssd_scan_ref)
+    margins = ssd_scan.bwd_margins(got, want)
+    assert max(margins.values()) <= 1, margins
 
 
 @pytest.mark.cuda
@@ -892,6 +1009,37 @@ def test_hybrid_protocol_inits_and_trains_on_card(cuda):
     rec = proto.run_round(synthetic_tokens(4, 2, 128, cfg.vocab_size, seed=0))
     torch.cuda.synchronize()
     assert K4.launches > before[0] and K4.bwd_launches > before[1]
+    assert np.isfinite(rec.scores).all() and np.isfinite(rec.losses).all()
+    proto.finalize()
+
+
+@pytest.mark.cuda
+def test_xlstm_worker_step_on_card(cuda):
+    """``SDFLBProtocol`` over xlstm-1.3b's smoke config on the card (mLSTM
+    heads of dh 128, dv 129: K4's wide path) starts from the CPU's weights
+    bit for bit and trains one sync round: each worker's step (remat, the
+    default) launches K4's wide forward twice (the forward and backward's
+    recompute of the one mLSTM block) and its wide backward once, and its
+    loss after the step K4's forward once more; scores and losses are
+    finite."""
+    from repro_torch.configs.base import FederationConfig, TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.protocol import SDFLBProtocol
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api
+    cfg = get_smoke_config("xlstm-1.3b")
+    fed = FederationConfig(num_clusters=2, workers_per_cluster=2)
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, grad_clip=1.0)
+    proto = SDFLBProtocol(cfg, fed, tc, use_blockchain=False, seed=0,
+                          device=cuda)
+    cpu = api.init(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    for k, v in cpu.items():
+        assert torch.equal(proto.global_params[k].cpu(), v), k
+    K4 = ssd_scan.ssd_scan
+    before = (K4.launches, K4.bwd_launches)
+    rec = proto.run_round(synthetic_tokens(4, 2, 128, cfg.vocab_size, seed=0))
+    torch.cuda.synchronize()
+    assert (K4.launches - before[0], K4.bwd_launches - before[1]) == (12, 4)
     assert np.isfinite(rec.scores).all() and np.isfinite(rec.losses).all()
     proto.finalize()
 

@@ -1,8 +1,8 @@
 """The port's xLSTM serve path (the ``ssm`` family) against the JAX package
 on the CPU: the stack's forward, prefill (logits and every cache leaf) and
 greedy decode, the decode cache's leaf dtypes, the weight conversion of the
-xLSTM tree, the serve entry point and CLI, the loss that raises until the
-training slice, and the registry. ``tests/test_torch_xlstm.py`` holds the
+xLSTM tree, the serve entry point and CLI, the training entry points that
+take the family, and the registry. ``tests/test_torch_xlstm.py`` holds the
 blocks.
 
 Configs: xlstm-1.3b's smoke config (one super-layer of one mLSTM and one
@@ -240,14 +240,13 @@ def test_xlstm_serve_cli_prints_the_reference_lines(capsys):
     assert out[3].startswith("sample token ids:")
 
 
-def test_lm_loss_raises_for_the_ssm_family():
+def test_xlstm_is_a_train_arch():
+    """xLSTM trains through the launcher and the example (its loss and
+    gradients against the reference: ``tests/test_torch_xlstm_train.py``)."""
+    from repro_torch.examples import federated_llm
     from repro_torch.launch import train
-    cfg = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        api.lm_loss_fn(cfg)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        api.loss_fn(cfg)
-    assert ARCH not in train.TRAIN_ARCHS
+    assert ARCH in train.TRAIN_ARCHS and ARCH in federated_llm.LLM_ARCHS
+    assert callable(api.lm_loss_fn(get_smoke_config(ARCH)))
 
 
 def test_registry_holds_xlstm_at_its_published_size():
