@@ -3565,13 +3565,17 @@ def phase_xlstm_serve(name):
 # training shape (batch 4, seq 512: two chunks of 256, so the state's
 # gradient crosses a chunk; dv 1025's last column tile holds one column)
 # with mLSTM's gates and gentle ones, the smoke config's mLSTM shape from an
-# initial state with a nonzero dh_final, and sizes off the 128 x 128
-# tiles; the tolerance is ssd_scan.BWD_ATOL_REL
+# initial state with a nonzero dh_final (init True), from an initial state
+# alone ("h0") and with a dh_final alone ("dh"), each skip of a state known
+# to be zero on its own, and sizes off the 128 x 128 tiles; the tolerance
+# is ssd_scan.BWD_ATOL_REL
 SSD_WIDE_TRAIN = dict(B=4, S=512, H=4, dk=1024, dv=1025, chunk=256)
 SSD_WIDE_BWD_CASES = [(SSD_WIDE_TRAIN, "mlstm", False),
                       (SSD_WIDE_TRAIN, "gentle", False),
                       (SSD_WIDE_SMOKE, "mlstm", True),
                       (SSD_WIDE_SMOKE, "gentle", True),
+                      (SSD_WIDE_SMOKE, "mlstm", "h0"),
+                      (SSD_WIDE_SMOKE, "gentle", "dh"),
                       (dict(B=2, S=192, H=3, dk=200, dv=77, chunk=96),
                        "gentle", True)]
 # xlstm_grad_parity: the card against the CPU at full width cut to one
@@ -3599,20 +3603,25 @@ def ssd_wide_bwd_case(K4, name, shape, gates, init, gen):
     against ``torch.autograd`` through the plain forward on the same card
     inputs (``K4.bwd_margins`` <= 1), both reading the f32 states the wide
     forward wrote, which must pass the forward's check of the plain
-    forward's. At the training and smoke shapes each planted fault must
-    fail by a margin > 1; at the training shape with mLSTM's gates two
-    calls must give the same bits, 4 calls make 4 x ``WIDE_BWD_LAUNCHES``
-    kernel launches and nothing else, and the kernel, the plain backward
-    and the wide forward with and without its states are timed beside the
-    bound."""
+    forward's; ``init`` True, False, "h0" or "dh" (an initial state and a
+    dh_final, neither, or one of them). At the training and smoke shapes
+    each planted fault must fail by a margin > 1; at the training shape
+    with mLSTM's gates two calls must give the same bits, 4 calls make 4 x
+    ``WIDE_BWD_LAUNCHES`` kernel launches and nothing else, the kernel as
+    autograd calls it in training (no initial state, no dh_final, no dh0)
+    on bf16-valued q, k, v (training's: mLSTM widens them from bf16) must
+    pass the same check, and the kernel (so, and on f32 values, and with
+    dh0), the plain backward and the wide forward with and without its
+    states are timed beside the bound."""
     B, S, H, dk, dv, chunk = (shape[x] for x in ("B", "S", "H", "dk", "dv",
                                                  "chunk"))
     check(K4.is_wide(dk, dv, chunk), f"{shape} is not a wide shape")
     dev = torch.device("cuda")
-    q, k, v, a, i, h0 = wide_inputs(B, S, H, dk, dv, gates, init, gen)
+    has_h0, has_dh = init in (True, "h0"), init in (True, "dh")
+    q, k, v, a, i, h0 = wide_inputs(B, S, H, dk, dv, gates, has_h0, gen)
     dy = torch.randn(v.shape, generator=gen, device=dev)
     dh = torch.randn((B, H, dk, dv), generator=gen, device=dev) \
-        if init else None
+        if has_dh else None
     _, _, states = K4._launch_fwd(q, k, v, a, i, h0, chunk, True)
     want_states = K4.ssd_scan_ref(q, k, v, a, i, chunk=chunk,
                                   initial_state=h0, return_states=True)[2]
@@ -3628,12 +3637,12 @@ def ssd_wide_bwd_case(K4, name, shape, gates, init, gen):
     plain = K4.ssd_scan_bwd_ref(q, k, v, a, i, dy, dh, chunk=chunk,
                                 initial_state=h0, states=states)
     leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v, a, i)]
-    if init:
+    if has_h0:
         leaves.append(h0.detach().clone().requires_grad_(True))
     y, h = K4.ssd_scan_ref(*leaves[:5], chunk=chunk,
-                           initial_state=leaves[5] if init else None)
+                           initial_state=leaves[5] if has_h0 else None)
     auto = torch.autograd.grad(
-        [y, h], leaves, [dy, dh if init else torch.zeros_like(h)])
+        [y, h], leaves, [dy, dh if has_dh else torch.zeros_like(h)])
     del y, h, leaves
     margins = {"plain": K4.bwd_margins(got, plain),
                "autograd": K4.bwd_margins(got, auto)}
@@ -3671,19 +3680,42 @@ def ssd_wide_bwd_case(K4, name, shape, gates, init, gen):
             lambda: K4.ssd_scan_bwd(q, k, v, a, i, dy, dh, chunk=chunk,
                                     initial_state=h0, states=states),
             "ssd_wide_bwd", per_call=K4.WIDE_BWD_LAUNCHES)
+        # as autograd calls it in training: bf16-valued q, k, v, no dh0
+        xb = [x.bfloat16().float() for x in (q, k, v)]
+        _, _, states_b = K4._launch_fwd(*xb, a, i, h0, chunk, True)
+        got_b = K4.ssd_scan_bwd(*xb, a, i, dy, dh, chunk=chunk,
+                                initial_state=h0, states=states_b,
+                                want_dh0=False)
+        plain_b = K4.ssd_scan_bwd_ref(*xb, a, i, dy, dh, chunk=chunk,
+                                      initial_state=h0, states=states_b)
+        row["margins"]["plain_bf16_values"] = K4.bwd_margins(got_b[:5],
+                                                             plain_b[:5])
+        check(got_b[5] is None and
+              max(row["margins"]["plain_bf16_values"].values()) <= 1,
+              f"ssd_scan_bwd wide on bf16 values: "
+              f"{row['margins']['plain_bf16_values']}")
+        del got_b, plain_b
         bw, f32_peak = peaks(name)
         row.update(K4.bwd_bound(B, S, H, dk, dv, chunk, 4, bw,
                                 tensor_peak(name), f32_peak,
-                                qk_per_head=True, dh_final=dh is not None))
+                                qk_per_head=True, dh_final=dh is not None,
+                                initial_state=h0 is not None,
+                                dh0=h0 is not None))
         row.update({
             "design": K4.WIDE_BWD_DESIGN,
             "launches_per_call": K4.WIDE_BWD_LAUNCHES,
             "ms": time_ms(lambda: K4.ssd_scan_bwd(
+                *xb, a, i, dy, dh, chunk=chunk, initial_state=h0,
+                states=states_b, want_dh0=h0 is not None)),
+            "ms_f32_values": time_ms(lambda: K4.ssd_scan_bwd(
+                q, k, v, a, i, dy, dh, chunk=chunk, initial_state=h0,
+                states=states, want_dh0=h0 is not None)),
+            "ms_with_dh0": time_ms(lambda: K4.ssd_scan_bwd(
                 q, k, v, a, i, dy, dh, chunk=chunk, initial_state=h0,
                 states=states)),
             "plain_ms": time_ms(lambda: K4.ssd_scan_bwd_ref(
-                q, k, v, a, i, dy, dh, chunk=chunk, initial_state=h0,
-                states=states)),
+                *xb, a, i, dy, dh, chunk=chunk, initial_state=h0,
+                states=states_b)),
             "library_ms": None,
             "forward_with_states_ms": time_ms(lambda: K4._launch_fwd(
                 q, k, v, a, i, h0, chunk, True)),
@@ -3691,10 +3723,18 @@ def ssd_wide_bwd_case(K4, name, shape, gates, init, gen):
                 q, k, v, a, i, h0, chunk, False)),
             "min_bytes": K4.bwd_hbm_bytes(B, S, H, dk, dv, chunk, 4,
                                           qk_per_head=True,
-                                          dh_final=dh is not None)["minimum"],
-            "flops": K4.bwd_flops(B, S, H, dk, dv, chunk),
-            "scratch_bytes": K4.wide_bwd_scratch_bytes(B, S, H, dk, dv,
-                                                       chunk)})
+                                          dh_final=dh is not None,
+                                          initial_state=h0 is not None,
+                                          dh0=h0 is not None)["minimum"],
+            "flops": K4.bwd_flops(B, S, H, dk, dv, chunk,
+                                  initial_state=h0 is not None,
+                                  dh_final=dh is not None,
+                                  dh0=h0 is not None),
+            "flops_all": K4.bwd_flops(B, S, H, dk, dv, chunk),
+            "scratch_bytes": K4.wide_bwd_scratch_bytes(
+                B, S, H, dk, dv, chunk, initial_state=h0 is not None,
+                dh_final=dh is not None)})
+        del xb, states_b
         row["achieved_tflop_s"] = row["flops"] / row["ms"] / 1e9
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         row["share_of_f32_core_bound"] = row["f32_core_bound_ms"] / row["ms"]
@@ -4071,8 +4111,9 @@ def main():
             "design": wide_bwd_row["design"],
             "launches": xround_counts["ssd_scan_bwd"],
             **{k: wide_bwd_row[k] for k in (
-                "launches_per_call", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "f32_core_bound_ms", "library_ms")},
+                "launches_per_call", "max_abs_err", "ms", "ms_f32_values",
+                "ms_with_dh0", "plain_ms", "bound_ms", "bound_by",
+                "f32_core_bound_ms", "library_ms")},
             "shape": {k: wide_bwd_row[k] for k in (
                 "B", "S", "H", "dk", "dv", "chunk", "gates", "dtype")}}})
     emit({"phase": "total", "wall_s": time.monotonic() - t_start,

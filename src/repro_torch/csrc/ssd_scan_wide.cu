@@ -71,7 +71,8 @@
 // In launches 1 and 2 every operand is bf16 part planes that cp.async brings
 // into a ring of three or four stages of shared memory, slabs of 32 along
 // the reduction, read by ldmatrix (rows padded to an odd count of 16-byte
-// pieces, so the eight row reads of an ldmatrix hit distinct banks). So no
+// pieces, so the eight row reads of an ldmatrix hit distinct banks; these
+// helpers are rt::wide in common.cuh, shared with the backward). So no
 // block re-reads a whole chunk's q and k (the first design, at f5f169e:
 // 1,040 blocks of 16 columns each read every chunk's q, k and P), the
 // states' round trip through HBM is the price of the parallelism, and every
@@ -93,20 +94,14 @@
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+// the tile, the slab, the planes and their helpers (rt::wide, common.cuh)
+using namespace rt::wide;
 
-constexpr int kThreads = 256;
 constexpr int kMaxQ = 256;            // chunk positions
 constexpr int kMaxDk = 1024;          // state rows
 constexpr int kNI = 3;                // parts of f32 q, k, v
 constexpr int kNP = 2;                // parts of P, the states, w v
-constexpr int kT = 128;               // a block's output tile is kT x kT
-constexpr int kK = 32;                // the reduction's slab
 constexpr int kCountTab = 4096;       // slabs' part counts a block keeps
-constexpr int kRS = kK + 8;           // row stride (bf16) of a [128][32] plane
-constexpr int kCS = kT + 8;           // row stride of a [32][128] plane
-constexpr int kRowPlane = kT * kRS;   // bf16 elements of a plane
-constexpr int kColPlane = kK * kCS;
 
 constexpr int cmax(int x, int y) { return x > y ? x : y; }
 // Stages of slabs in shared memory and bf16 elements a stage: a state
@@ -119,13 +114,6 @@ constexpr int kYStages = 4, kYStage = cmax(kNI * kRowPlane + kNP * kColPlane,
 constexpr int kSmem1 = 2 * cmax(kStatStages * kStatStage,
                                 kScoreStages * kScoreStage);
 constexpr int kSmem2 = 2 * kYStages * kYStage;
-
-__host__ __device__ __forceinline__ int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
-__host__ __device__ __forceinline__ int64_t round_up(int64_t x, int64_t m) {
-  return (x + m - 1) / m * m;
-}
 
 // The scratch buffer of a call, in bytes from its start (each region
 // 16-byte aligned): the parts of the state before each chunk (B, H, nc, 2,
@@ -188,129 +176,10 @@ struct Call {
   __device__ bf16* wv_plane(int64_t bh) const {
     return wvp + bh * kNP * (int64_t)S * dvp();
   }
-  // parts in use of q (x 0), k (1) or v (2) over the slabs [j0, j1) of a
-  // (b, h, chunk), the slabs of chunk n being the J() from n J(); j1 may
-  // pass the chunk's end and reach into the chunks after it. Every thread
-  // calls it, once a block: it is a block reduction.
-  __device__ int parts(int64_t bhn, int j0, int j1, int x) const {
-    int n = 1;
-    for (int j = j0 + threadIdx.x; j < j1; j += kThreads)
-      n = max(n, __ldg(flags + (bhn * J() + j) * 3 + x));
-    return 1 + (__syncthreads_or(n > 1) ? 1 : 0) +
-           (__syncthreads_or(n > 2) ? 1 : 0);
-  }
-  // the parts in use of q (x 0), k (1) or v (2) in slab j of (b, h,
-  // chunk) bhn (j may pass the chunk's end into the chunks after it)
-  __device__ int count(int64_t bhn, int j, int x) const {
-    return __ldg(flags + (bhn * J() + j) * 3 + x);
-  }
-  // the same for slabs j0 .. j0 + 3 of one chunk, a byte each (0 past
-  // its last slab): the four 32-row groups of a 128-row slab
-  __device__ uint32_t count4(int64_t bhn, int j0, int x) const {
-    uint32_t out = 0;
-    for (int u = 0; u < 4; ++u)
-      if (j0 + u < J()) out |= (uint32_t)count(bhn, j0 + u, x) << (8 * u);
-    return out;
-  }
+  // the parts in use of q (x 0), k (1) or v (2) over the slabs of a (b, h,
+  // chunk)
+  __device__ PartFlags pf() const { return PartFlags{flags, J(), 3}; }
 };
-
-// Four floats of a row at p, the first n (clamped to 0 .. 4) read and the
-// rest 0; one 16-byte load where vec.
-__device__ __forceinline__ void load4(const float* __restrict__ p, int n,
-                                      bool vec, float (&x)[4]) {
-  if (vec && n >= 4) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) x[e] = e < n ? __ldg(p + e) : 0.f;
-}
-
-// Launch 0's work on one operand: rows r < rows (<= kK) of width W at src
-// (rows rs floats apart) into bf16 part planes at dst (rows of Wp >= W,
-// zero past W; planes dplane apart), only the parts in use over these rows,
-// whose count it returns. With scale, also the kNP parts of scale[r] times
-// the row into sdst (planes sdplane apart). Every thread calls it: the
-// count is a block reduction. The second pass reads the rows again, from
-// L2.
-__device__ int split_rows(const float* __restrict__ src, int64_t rs, int W,
-                          int Wp, bool vec, int rows, bf16* __restrict__ dst,
-                          int64_t dplane, const float* scale,
-                          bf16* __restrict__ sdst, int64_t sdplane) {
-  constexpr int U = 4, kMain = 4 * kThreads;
-  int nz = 0, used = 1;
-  auto note = [&](const float (&x)[4]) {
-#pragma unroll
-    for (int e = 0; e < 4; e += 2) {
-      uint32_t part[kNI];
-      rt::split_bf16<kNI>(x[e], x[e + 1], part);
-      nz |= (part[1] ? 2 : 0) | (part[2] ? 4 : 0);
-    }
-  };
-  auto put = [&](int r, int c, const float (&x)[4]) {
-    uint32_t lo[kNI], hi[kNI];
-    rt::split_bf16<kNI>(x[0], x[1], lo);
-    rt::split_bf16<kNI>(x[2], x[3], hi);
-#pragma unroll
-    for (int p = 0; p < kNI; ++p)
-      if (p < used)
-        *reinterpret_cast<uint2*>(dst + p * dplane + r * Wp + c) =
-            make_uint2(lo[p], hi[p]);
-    if (scale) {
-      const float f = scale[r];
-      uint32_t slo[kNP], shi[kNP];
-      rt::split_bf16<kNP>(f * x[0], f * x[1], slo);
-      rt::split_bf16<kNP>(f * x[2], f * x[3], shi);
-#pragma unroll
-      for (int p = 0; p < kNP; ++p)
-        *reinterpret_cast<uint2*>(sdst + p * sdplane + r * Wp + c) =
-            make_uint2(slo[p], shi[p]);
-    }
-  };
-  // The first kMain columns: thread t's four at 4 t, rows four at a time;
-  // the columns past them (dv = 1025's last) a row and four columns a
-  // thread, so that no thread walks the rows alone.
-  const int c = 4 * threadIdx.x;
-  if (c < W)
-    for (int r0 = 0; r0 < rows; r0 += U) {
-      float x[U][4];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        load4(src + (r0 + u) * rs + c, r0 + u < rows ? W - c : 0, vec, x[u]);
-#pragma unroll
-      for (int u = 0; u < U; ++u) note(x[u]);
-    }
-  const int R = max(0, W - kMain + 3) / 4;
-  for (int e = threadIdx.x; e < rows * R; e += kThreads) {
-    const int r = e / R, cr = kMain + 4 * (e % R);
-    float x[4];
-    load4(src + r * rs + cr, W - cr, vec, x);
-    note(x);
-  }
-  if (__syncthreads_or(nz)) {
-    used += __syncthreads_or(nz & 2) ? 1 : 0;
-    used += __syncthreads_or(nz & 4) ? 1 : 0;
-  }
-  if (c < Wp)
-    for (int r0 = 0; r0 < rows; r0 += U) {
-      float x[U][4];
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        load4(src + (r0 + u) * rs + c, r0 + u < rows ? W - c : 0, vec, x[u]);
-#pragma unroll
-      for (int u = 0; u < U; ++u)
-        if (r0 + u < rows) put(r0 + u, c, x[u]);
-    }
-  const int Rp = max(0, Wp - kMain) / 4;
-  for (int e = threadIdx.x; e < rows * Rp; e += kThreads) {
-    const int r = e / Rp, cr = kMain + 4 * (e % Rp);
-    float x[4];
-    load4(src + r * rs + cr, W - cr, vec, x);
-    put(r, cr, x);
-  }
-  return used;
-}
 
 // Launch 0: rows 32 j .. of (b, h, chunk) of one operand (blockIdx.y 0: q,
 // 1: k, 2: v with w v): its parts and their count, and (q, j = 0) the
@@ -336,9 +205,10 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_wide_split(
   if (x < 2) {
     const float* src = x ? c.k + b * ksb + h * ksh + row0 * kss
                          : c.q + b * qsb + h * qsh + row0 * qss;
-    used = split_rows(src, x ? kss : qss, c.dk, dkp, vec_qk, rows,
-                      (x ? c.k_plane(bh) : c.q_plane(bh)) + row0 * dkp,
-                      (int64_t)c.S * dkp, nullptr, nullptr, 0);
+    used = split_rows<kNI, kNP>(
+        src, x ? kss : qss, c.dk, dkp, vec_qk, rows,
+        (x ? c.k_plane(bh) : c.q_plane(bh)) + row0 * dkp, (int64_t)c.S * dkp,
+        nullptr, nullptr, 0);
     if (x == 0 && j == 0 && threadIdx.x < 32) {
       rt::chunk_cumsum(a + g0, c.H, Q, cum);
       __syncwarp();
@@ -356,133 +226,12 @@ __global__ void __launch_bounds__(kThreads, 2) ssd_wide_split(
     }
     __syncthreads();
     const int64_t pv = (int64_t)c.S * dvp;
-    used = split_rows(c.v + b * vsb + h * vsh + row0 * vss, vss, c.dv, dvp,
-                      vec_v, rows, c.v_plane(bh) + row0 * dvp, pv, w,
-                      c.wv_plane(bh) + row0 * dvp, pv);
+    used = split_rows<kNI, kNP>(c.v + b * vsb + h * vsh + row0 * vss, vss,
+                                c.dv, dvp, vec_v, rows,
+                                c.v_plane(bh) + row0 * dvp, pv, w,
+                                c.wv_plane(bh) + row0 * dvp, pv);
   }
   if (threadIdx.x == 0) c.flags[(bhn * J + j) * 3 + x] = used;
-}
-
-// The first np bf16 part planes of a [32][128] (kWide) or [128][32] slab
-// from global memory (plane p at src + p * splane, rows rs elements apart;
-// row r read where r < nrows, the 8-wide piece at column c where c < ncols)
-// into shared memory by cp.async, zero where not read. Launch 0 writes a
-// plane of q, k or v only for the 32-position slabs whose values need it:
-// byte g of cnt is the count of planes written for rows 32 g .. 32 g + 31
-// (byte 0 for a [32][128] slab), and the planes past it are zero-filled
-// here, not read. An operand whose planes are all written passes ~0u.
-template <bool kWide>
-__device__ __forceinline__ void stage_parts(bf16* dst,
-                                            const bf16* __restrict__ src,
-                                            int64_t splane, int64_t rs,
-                                            int nrows, int ncols, int np,
-                                            uint32_t cnt) {
-  constexpr int per_row = (kWide ? kT : kK) / 8;
-  constexpr int pieces = (kWide ? kK : kT) * per_row;     // 512 a plane
-  constexpr int stride = kWide ? kCS : kRS;
-  constexpr int dplane = kWide ? kColPlane : kRowPlane;
-  for (int p = 0; p < np; ++p)
-#pragma unroll
-    for (int it = 0; it < pieces / kThreads; ++it) {
-      const int e = threadIdx.x + it * kThreads;
-      const int r = e / per_row, c = 8 * (e % per_row);
-      const int written = cnt >> (kWide ? 0 : 8 * (r >> 5)) & 255;
-      const bool ok = r < nrows && c < ncols && p < written;
-      rt::cp_async16_zfill(dst + p * dplane + r * stride + c,
-                           ok ? src + p * splane + r * rs + c : src,
-                           ok ? 16 : 0);
-    }
-}
-
-// acc += A B over one slab on the tensor cores. A (128 x 32) in NA part
-// planes, stored [K][M] (kAK, read by ldmatrix.trans) or [M][K]; B (32 x
-// 128) in NB planes, stored [K][N] (kBK) or [N][K]; only the first na and
-// nb parts are in use, and of those the products i + j < max(NA, NB) run,
-// in one fixed order. Warp w owns rows 64 (w / 4) .. + 64 and columns
-// 32 (w % 4) .. + 32 of the tile: acc[m][n] is the 16 x 8 tile m, n there.
-template <bool kAK, bool kBK, int NA, int NB>
-__device__ __forceinline__ void mma_slab(float (&acc)[4][4][4],
-                                         const bf16* A, const bf16* B,
-                                         int na, int nb) {
-  constexpr int AP = kAK ? kColPlane : kRowPlane;
-  constexpr int BP = kBK ? kColPlane : kRowPlane;
-  constexpr int kTerms = NA > NB ? NA : NB;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = 64 * (warp >> 2), wn = 32 * (warp & 3);
-  const int l7 = lane & 7, l8 = (lane >> 3) & 1, l16 = lane >> 4;
-#pragma unroll
-  for (int ks = 0; ks < kK; ks += 16) {
-    uint32_t b[NB][4][2];
-#pragma unroll
-    for (int p = 0; p < NB; ++p) {
-      if (p >= nb) break;
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        const int n0 = wn + 16 * np;
-        if constexpr (kBK)
-          rt::ldmatrix_x4_trans(
-              r, B + p * BP + (ks + l7 + 8 * l8) * kCS + n0 + 8 * l16);
-        else
-          rt::ldmatrix_x4(
-              r, B + p * BP + (n0 + l7 + 8 * l16) * kRS + ks + 8 * l8);
-        b[p][2 * np][0] = r[0], b[p][2 * np][1] = r[1];
-        b[p][2 * np + 1][0] = r[2], b[p][2 * np + 1][1] = r[3];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NA; ++i) {
-      if (i >= na) break;
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        uint32_t af[4];
-        const int m0 = wm + 16 * m;
-        if constexpr (kAK)
-          rt::ldmatrix_x4_trans(
-              af, A + i * AP + (ks + l7 + 8 * l16) * kCS + m0 + 8 * l8);
-        else
-          rt::ldmatrix_x4(
-              af, A + i * AP + (m0 + (lane & 15)) * kRS + ks + 8 * l16);
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-          if (i + j < kTerms && j < nb)
-#pragma unroll
-            for (int n = 0; n < 4; ++n)
-              rt::mma(acc[m][n], af, b[j][n][0], b[j][n][1]);
-      }
-    }
-  }
-}
-
-// Where the thread's accumulator acc[m][n][e] sits in the 128 x 128 tile.
-__device__ __forceinline__ int acc_row(int m, int e) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return 64 * (warp >> 2) + 16 * m + (lane >> 2) + 8 * (e >> 1);
-}
-__device__ __forceinline__ int acc_col(int n, int e) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  return 32 * (warp & 3) + 8 * n + 2 * (lane & 3) + (e & 1);
-}
-
-// G slabs through a ring of NS stages: stage(g, st) issues slab g's
-// copies into stage st, mma(g, st) multiplies it once it has landed.
-template <int NS, class Stage, class Mma>
-__device__ __forceinline__ void pipeline(int G, Stage stage, Mma mma) {
-#pragma unroll
-  for (int g = 0; g < NS - 1; ++g) {
-    if (g < G) stage(g, g);
-    rt::cp_async_commit();
-  }
-  for (int g = 0; g < G; ++g) {
-    rt::cp_async_wait<NS - 2>();        // slab g has landed
-    __syncthreads();                    // for every thread, and the stage
-                                        // refilled below is done with
-    const int next = g + NS - 1;
-    if (next < G) stage(next, next % NS);
-    rt::cp_async_commit();
-    mma(g, g % NS);
-  }
-  rt::cp_async_wait<0>();
 }
 
 // Launch 1, a state block: the tile (rows d0 .., columns e0 ..) of one
@@ -516,15 +265,15 @@ __device__ __forceinline__ void state_block(const Call& c, int bid,
   // them in shared memory
   __shared__ uint8_t kc[kCountTab];
   for (int g = threadIdx.x; g < min(nc * J, kCountTab); g += kThreads)
-    kc[g] = (uint8_t)c.count(bh * nc, g, 1);
-  const int nk = c.parts(bh * nc, 0, nc * J, 1);
+    kc[g] = (uint8_t)c.pf().count(bh * nc, g, 1);
+  const int nk = c.pf().parts(bh * nc, 0, nc * J, 1);
   const int64_t pk = (int64_t)c.S * dkp, pv = (int64_t)c.S * dvp;
   auto stage = [&](int g, int st) {
     const int n = g / J, j = g % J;
     const int64_t row = (int64_t)n * Q + kK * j;
     bf16* s = smem + st * kStatStage;
     stage_parts<true>(s, kb + row * dkp, pk, dkp, Q - kK * j, dkp - d0, nk,
-                      g < kCountTab ? kc[g] : c.count(bh * nc, g, 1));
+                      g < kCountTab ? kc[g] : c.pf().count(bh * nc, g, 1));
     stage_parts<true>(s + kNI * kColPlane, wvb + row * dvp, pv, dvp,
                       Q - kK * j, dvp - e0, kNP, ~0u);
   };
@@ -546,40 +295,9 @@ __device__ __forceinline__ void state_block(const Call& c, int bid,
             }
       }
       if (n > 0 || c.h0) {             // launch 2 reads no zero state
-        // the state before chunk n in its parts, 16 bytes a store: the four
-        // threads of a quad trade their column pairs, so that thread q
-        // holds columns 8 q .. 8 q + 7 of the warp's 32
-        const int q = threadIdx.x & 3, lane = threadIdx.x & 31;
-        const int col = e0 + 32 * (threadIdx.x >> 5 & 3) + 8 * q;
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-#pragma unroll
-          for (int e = 0; e < 4; e += 2) {
-            uint32_t pr[4][kNP];
-#pragma unroll
-            for (int nn = 0; nn < 4; ++nn)
-              rt::split_bf16<kNP>(acc[m][nn][e], acc[m][nn][e + 1], pr[nn]);
-            const int d = d0 + acc_row(m, e);
-#pragma unroll
-            for (int p = 0; p < kNP; ++p) {
-              uint32_t got[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                const int give = (q + k) & 3, from = (q - k) & 3;
-                const uint32_t v = __shfl_sync(
-                    0xffffffffu,
-                    give == 0 ? pr[0][p] : give == 1 ? pr[1][p]
-                                         : give == 2 ? pr[2][p] : pr[3][p],
-                    (lane & ~3) | from);
-#pragma unroll
-                for (int x = 0; x < 4; ++x) got[x] = x == from ? v : got[x];
-              }
-              if (d < dk && col < dvp)
-                *reinterpret_cast<uint4*>(c.hb_plane(bh, n, p) +
-                                          (int64_t)d * dvp + col) =
-                    make_uint4(got[0], got[1], got[2], got[3]);
-            }
-          }
+        // the state before chunk n in its parts
+        store_parts<kNP>(acc, c.hb_plane(bh, n, 0), (int64_t)dk * dvp, d0,
+                         e0, dk, dvp);
       }
       const float dec = expf(c.cum[bh * c.S + (int64_t)n * Q + Q - 1]);
 #pragma unroll
@@ -625,10 +343,10 @@ __device__ __forceinline__ void score_block(const Call& c, int bid,
   const bf16* kb = c.k_plane(bh) + (row0 + s0) * dkp;
   const int64_t pk = (int64_t)c.S * dkp;
   const int J = c.J();
-  const int nq = c.parts(bhn, t0 / kK, min((t0 + kT) / kK, J), 0);
-  const int nk = c.parts(bhn, s0 / kK, min((s0 + kT) / kK, J), 1);
-  const uint32_t qc = c.count4(bhn, t0 / kK, 0);
-  const uint32_t kc = c.count4(bhn, s0 / kK, 1);
+  const int nq = c.pf().parts(bhn, t0 / kK, min((t0 + kT) / kK, J), 0);
+  const int nk = c.pf().parts(bhn, s0 / kK, min((s0 + kT) / kK, J), 1);
+  const uint32_t qc = c.pf().count4(bhn, t0 / kK, 0);
+  const uint32_t kc = c.pf().count4(bhn, s0 / kK, 1);
   float acc[4][4][4] = {};
   auto stage = [&](int g, int st) {
     bf16* s = smem + st * kScoreStage;
@@ -709,11 +427,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bf16* vb = c.v_plane(bh) + row0 * dvp + e0;
   const int64_t pk = (int64_t)c.S * dkp, pv = (int64_t)c.S * dvp;
   const int J = c.J();
-  const int nq = c.parts(bhn, t0 / kK, min((t0 + kT) / kK, J), 0);
-  const int nv = c.parts(bhn, 0, J, 2);
-  const uint32_t qc = c.count4(bhn, t0 / kK, 0);
+  const int nq = c.pf().parts(bhn, t0 / kK, min((t0 + kT) / kK, J), 0);
+  const int nv = c.pf().parts(bhn, 0, J, 2);
+  const uint32_t qc = c.pf().count4(bhn, t0 / kK, 0);
   uint64_t vc = 0;                     // v's, a byte a slab (J <= 8)
-  for (int j = 0; j < J; ++j) vc |= (uint64_t)c.count(bhn, j, 2) << (8 * j);
+  for (int j = 0; j < J; ++j)
+    vc |= (uint64_t)c.pf().count(bhn, j, 2) << (8 * j);
   float acc[4][4][4] = {};
   auto stage = [&](int g, int st) {
     bf16* s = smem + st * kYStage;

@@ -46,9 +46,9 @@ _SIGNATURES = {
     "repro_ssd_scan_wide": [_P] * 6 + [_I] * 6 + [_L] * 9 + [_P, _L] +
     [_P] * 4,
     "repro_ssd_scan_wide_scratch": [_I] * 6 + [_P],
-    "repro_ssd_scan_wide_bwd": [_P] * 8 + [_I] * 6 + [_L] * 9 + [_P, _L] +
+    "repro_ssd_scan_wide_bwd": [_P] * 8 + [_I] * 7 + [_L] * 9 + [_P, _L] +
     [_P] * 7,
-    "repro_ssd_scan_wide_bwd_scratch": [_I] * 6 + [_P],
+    "repro_ssd_scan_wide_bwd_scratch": [_I] * 8 + [_P],
 }
 
 _lock = threading.Lock()

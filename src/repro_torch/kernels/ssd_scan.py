@@ -52,9 +52,13 @@ emulates that), q, k and v as three (exact), and a part that is zero
 across a slab (the serve's bf16-valued q, k, v) skips its products. Under
 grad its second launch also writes the f32 state before each chunk, and
 its backward is ``csrc/ssd_scan_wide_bwd.cu`` (``WIDE_BWD_LAUNCHES``
-launches, ``WIDE_BWD_DESIGN``: f32 FMAs in 128 x 128 tiles, the state's
-gradient walked in reverse by blocks that own a tile of it), counted in
-``ssd_scan.bwd_launches`` as the narrow one.
+launches, ``WIDE_BWD_DESIGN``: the forward's design turned around, on the
+tensor cores, with the state's gradient walked in reverse by blocks that
+own a tile of it; ``ssd_scan_bwd_ref(..., parts=WIDE_PARTS)`` emulates its
+split), counted in ``ssd_scan.bwd_launches`` as the narrow one. It
+computes no product of a state known to be zero: none of H_0 without an
+initial state, none of the final state's gradient where it is None, and
+dh0 only where it is asked for.
 """
 from __future__ import annotations
 
@@ -74,10 +78,11 @@ WIDE_LAUNCHES = 3        # kernel launches a call of the wide path makes
 WIDE_PARTS = 2           # bf16 parts of P, the states and w·v there
 WIDE_DESIGN = ("chunk-parallel split on the tensor cores: bf16 parts of q, "
                "k, v, w·v; states before each chunk and gated scores; y")
-WIDE_BWD_LAUNCHES = 3    # kernel launches a wide backward call makes
-WIDE_BWD_DESIGN = ("f32 FMAs in 128 x 128 tiles: the scores and the state's "
-                   "gradient walked in reverse by its tiles; dq, dk, dv; da, "
-                   "di")
+WIDE_BWD_LAUNCHES = 5    # kernel launches a wide backward call makes
+WIDE_BWD_DESIGN = ("tensor cores on bf16 parts: the parts of q, k, v, dy, "
+                   "e^cum q and the states; the gated scores; the state's "
+                   "gradient walked in reverse by its tiles; dq, dk, dv; "
+                   "da, di")
 
 # The card check (``chip_smoke.py``, ``tests/test_torch_cuda.py``) holds
 # the kernel elementwise to the plain version's f32 result on the same
@@ -328,14 +333,19 @@ def wide_scratch_bytes(B: int, S: int, H: int, dk: int, dv: int,
 
 
 def wide_bwd_scratch_bytes(B: int, S: int, H: int, dk: int, dv: int,
-                           chunk: int) -> int:
+                           chunk: int, *, initial_state: bool = True,
+                           dh_final: bool = True) -> int:
     """Bytes of the scratch buffer a wide backward call on the card needs
-    (the kernel library's own count, so it builds the library): the state's
-    gradient after each chunk, the gated scores P and R, and the tiles'
-    partial sums. 0.15 GB at xlstm-1.3b's training shape."""
+    (the kernel library's own count, so it builds the library), with or
+    without an initial state and a final state's gradient: the bf16 parts
+    of q, k, v, dy and e^{cum} q, of the states before each chunk and of
+    their gradients after it (those not known to be zero), of the gated
+    scores P and R, the chunks' cumsums, the parts in use and the tiles'
+    partial sums. 0.39 GB at xlstm-1.3b's training shape without either."""
     out = ctypes.c_longlong()
     err = _build.load().repro_ssd_scan_wide_bwd_scratch(
-        B, S, H, dk, dv, chunk, ctypes.addressof(out))
+        B, S, H, dk, dv, chunk, int(initial_state), int(dh_final),
+        ctypes.addressof(out))
     if err:
         raise ValueError(f"no wide backward at B {B}, S {S}, H {H}, dk {dk}, "
                          f"dv {dv}, chunk {chunk}")
@@ -404,9 +414,10 @@ class _SSDScan(torch.autograd.Function):
         q, k, v, a, i, h0, states = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+        # dh0 only where there is an initial state to take it
         dq, dk, dv, da, di, dh0 = ssd_scan_bwd(
             q, k, v, a, i, dy, dh, chunk=ctx.chunk, initial_state=h0,
-            states=states)
+            states=states, want_dh0=h0 is not None)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
                 da.to(a.dtype), di.to(i.dtype),
                 None if h0 is None else dh0.to(h0.dtype), None)
@@ -479,7 +490,11 @@ def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     and P, H_n in H_n dy_t, dH in dH v_s and dHᵀ k_s, and e^{cum_t} q_t in
     the Σ_t update of dH; the planted fault ``bwd_one_part`` is one part.
     <H_n, dH> and the scores' elementwise products stay f32, as in the
-    kernel."""
+    kernel. q, k, v and dy stay whole: the wide kernel splits them into
+    three parts, which hold them, but drops the part products i + j >= 3,
+    each with a third part (~2^-24 of a term), so the emulation is exact
+    for bf16-valued q, k, v and up to those products for dy and f32
+    values."""
     if fault is not None and fault not in BWD_FAULTS:
         raise ValueError(f"unknown fault {fault!r}; known: {BWD_FAULTS}")
     if fault == "bwd_one_part":
@@ -568,7 +583,7 @@ def ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
 
 
 def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
-                 initial_state=None, states=None):
+                 initial_state=None, states=None, want_dh0: bool = True):
     """The backward of ``ssd_scan`` → (dq, dk, dv, da, di, dh0). On CUDA
     tensors it launches the backward kernel (``csrc/ssd_scan_bwd.cu``, or
     at wide shapes (``is_wide``) the wide backward's ``WIDE_BWD_LAUNCHES``
@@ -577,7 +592,10 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     each chunk that the forward wrote; dq, dk and dv come in the inputs'
     dtype, da, di and dh0 in f32, and dq, dk per head even where q and k
     are head-stride-0 views. On CPU tensors it returns the plain backward,
-    ``ssd_scan_bwd_ref`` (all f32)."""
+    ``ssd_scan_bwd_ref`` (all f32). With ``want_dh0`` False dh0 comes back
+    as None, and the wide backward skips the products that only it needs;
+    without ``initial_state`` it reads no state before the first chunk,
+    and without ``dh_final`` none of the final state's gradient."""
     chunk = int(chunk)
     _check(q, k, v, a, i, chunk, initial_state)
     B, S, H, dk = q.shape
@@ -585,8 +603,9 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     if tuple(dy.shape) != (B, S, H, dv):
         raise ValueError(f"dy {tuple(dy.shape)} is not (B, S, H, dv)")
     if q.device.type == "cpu":
-        return ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final, chunk=chunk,
-                                initial_state=initial_state, states=states)
+        out = ssd_scan_bwd_ref(q, k, v, a, i, dy, dh_final, chunk=chunk,
+                               initial_state=initial_state, states=states)
+        return out if want_dh0 else (*out[:5], None)
     _check_card(q, k, v, chunk)
     nc = S // chunk
     if states is None or tuple(states.shape) != (B, nc, H, dk, dv) or \
@@ -605,21 +624,29 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     dv_ = torch.empty((B, S, H, dv), dtype=q.dtype, device=dev)
     da = torch.empty((B, S, H), dtype=f32, device=dev)
     di = torch.empty((B, S, H), dtype=f32, device=dev)
-    dh0 = torch.empty((B, H, dk, dv), dtype=f32, device=dev)
+    wide = is_wide(dk, dv, chunk)
+    # the narrow kernel carries the state's gradient in dh0's buffer, so it
+    # always has one; the wide backward writes dh0 only where asked for
+    dh0 = torch.empty((B, H, dk, dv), dtype=f32, device=dev) \
+        if want_dh0 or not wide else None
     ins = [_build.ptr(x) for x in (q, k, v, a32, i32, states, dy, dhf)]
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     outs = [_build.ptr(x) for x in (dq, dk_, dv_, da, di, dh0)]
-    if is_wide(dk, dv, chunk):
-        nbytes = wide_bwd_scratch_bytes(B, S, H, dk, dv, chunk)
+    if wide:
+        has_h0 = initial_state is not None
+        nbytes = wide_bwd_scratch_bytes(B, S, H, dk, dv, chunk,
+                                        initial_state=has_h0,
+                                        dh_final=dhf is not None)
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
         _build.launch("repro_ssd_scan_wide_bwd", dev, *ins, B, S, H, dk, dv,
-                      chunk, *strides, _build.ptr(scratch), nbytes, *outs)
+                      chunk, int(has_h0), *strides, _build.ptr(scratch),
+                      nbytes, *outs)
     else:
         _build.launch("repro_ssd_scan_bwd", dev, *ins,
                       int(v.dtype == torch.bfloat16), B, S, H, dk, dv, chunk,
                       *strides, *outs)
     ssd_scan.bwd_launches += 1
-    return dq, dk_, dv_, da, di, dh0
+    return dq, dk_, dv_, da, di, dh0 if want_dh0 else None
 
 
 def bwd_design(dtype: torch.dtype, dk: int, dv: int, chunk: int) -> int:
@@ -684,18 +711,22 @@ def bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
 def bwd_hbm_bytes(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
                   itemsize: int, *, qk_per_head: bool = False,
                   qk_itemsize: Optional[int] = None,
-                  dh_final: bool = True) -> dict:
+                  dh_final: bool = True, initial_state: bool = True,
+                  dh0: bool = True) -> dict:
     """HBM bytes one backward call must move: q and k once (as in
     ``hbm_bytes``: one row for all heads unless ``qk_per_head``, in
     ``qk_itemsize``, default ``itemsize``), v and dy once, the f32 gates
-    once, the f32 states before each chunk and dh_final once (where it is
-    given); dq and dk (per head, in q's item size), dv, the f32 da and di
-    and dh0 written once."""
+    once, the f32 states before each chunk (the first only with an
+    ``initial_state``: without one it is known to be zero) and dh_final
+    once (where it is given); dq and dk (per head, in q's item size), dv,
+    the f32 da and di, and dh0 (where it is asked for) written once. The
+    defaults count everything."""
     qk_size = qk_itemsize or itemsize
     qk = 2 * B * S * dk * (H if qk_per_head else 1) * qk_size
     v_dy = 2 * B * S * H * dv * itemsize
     gates = 2 * B * S * H * 4
-    states = (B * (S // chunk) * H + (2 if dh_final else 1) * B * H) * \
+    states = (S // chunk - (0 if initial_state else 1) +
+              (1 if dh_final else 0) + (1 if dh0 else 0)) * B * H * \
         dk * dv * 4
     grads = B * S * H * (2 * dk * qk_size + dv * itemsize) + \
         2 * B * S * H * 4
@@ -703,14 +734,27 @@ def bwd_hbm_bytes(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
             "grads": grads, "minimum": qk + v_dy + gates + states + grads}
 
 
-def bwd_flops(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> int:
+def bwd_flops(B: int, S: int, H: int, dk: int, dv: int, chunk: int, *,
+              initial_state: bool = True, dh_final: bool = True,
+              dh0: bool = True) -> int:
     """Multiply-adds (2 flops each) of ``ssd_scan_bwd_ref``'s products by
     chunks: over the Q(Q+1)/2 causal pairs the scores q·k and dy·v, then
     R k, Rᵀ q and Pᵀ dy; four (Q, dk, dv) products (H_n dy, dH v, dHᵀ k and
-    the dH update) and <H_n, dH>."""
+    the dH update) and <H_n, dH>. Less the products of states known to be
+    zero, as the wide backward skips them: without an initial state H_0 dy
+    and <H_0, dH_0>; without ``dh_final`` dH v and dHᵀ k at the last chunk
+    and its <H, dH>; without ``dh0`` the update at the first chunk, which
+    only dh0 reads. The defaults count everything."""
+    nc = S // chunk
     pairs = chunk * (chunk + 1) // 2
-    per_chunk = pairs * (3 * dk + 2 * dv) + (4 * chunk + 1) * dk * dv
-    return 2 * B * H * (S // chunk) * per_chunk
+    state = chunk * dk * dv
+    per_chunk = pairs * (3 * dk + 2 * dv) + 4 * state + dk * dv
+    skipped = (0 if initial_state else state) + \
+        (0 if dh_final else 2 * state) + (0 if dh0 else state)
+    zero_dots = {n for n, known in ((0, not initial_state),
+                                    (nc - 1, not dh_final)) if known}
+    skipped += len(zero_dots) * dk * dv
+    return 2 * B * H * (nc * per_chunk - skipped)
 
 
 def bwd_bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
@@ -718,18 +762,22 @@ def bwd_bound(B: int, S: int, H: int, dk: int, dv: int, chunk: int,
               tensor_flops_per_s: float, f32_flops_per_s: float, *,
               qk_per_head: bool = False,
               qk_itemsize: Optional[int] = None,
-              dh_final: bool = True) -> dict:
+              dh_final: bool = True, initial_state: bool = True,
+              dh0: bool = True) -> dict:
     """The least time (ms) the card could take for one backward call, as
-    ``bound``: the larger of its minimum HBM bytes over the memory rate and
-    its flops over the bf16 tensor cores' dense rate;
-    ``f32_core_bound_ms`` with the flops on the ordinary f32 cores, where
-    this kernel does them."""
+    ``bound``: the larger of its minimum HBM bytes (``bwd_hbm_bytes``) over
+    the memory rate and its flops (``bwd_flops``) over the bf16 tensor
+    cores' dense rate, both less what ``initial_state``, ``dh_final`` and
+    ``dh0`` say is known to be zero or not asked for; ``f32_core_bound_ms``
+    with those flops on the ordinary f32 cores, the yardstick of a design
+    that does them there."""
     t_bytes = bwd_hbm_bytes(B, S, H, dk, dv, chunk, itemsize,
                             qk_per_head=qk_per_head,
-                            qk_itemsize=qk_itemsize,
-                            dh_final=dh_final)["minimum"] / \
-        hbm_bytes_per_s * 1e3
-    fl = bwd_flops(B, S, H, dk, dv, chunk)
+                            qk_itemsize=qk_itemsize, dh_final=dh_final,
+                            initial_state=initial_state,
+                            dh0=dh0)["minimum"] / hbm_bytes_per_s * 1e3
+    fl = bwd_flops(B, S, H, dk, dv, chunk, initial_state=initial_state,
+                   dh_final=dh_final, dh0=dh0)
     t_ops = fl / tensor_flops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

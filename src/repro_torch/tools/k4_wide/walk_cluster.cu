@@ -77,8 +77,8 @@ __global__ void __cluster_dims__(kC, 1, 1) __launch_bounds__(kThreads, 1)
         acc[m][n][e] = c.h0 && d < dk && col < dv
                            ? c.h0[(bh * dk + d) * dv + col] : 0.f;
       }
-  const int nk = c.parts(bh * nc, 0, nc * J, 1);
-  const int nq = c.parts(bh * nc, 0, nc * J, 0);
+  const int nk = c.pf().parts(bh * nc, 0, nc * J, 1);
+  const int nq = c.pf().parts(bh * nc, 0, nc * J, 0);
   const int64_t pk = (int64_t)c.S * dkp, pv = (int64_t)c.S * dvp;
   const int Gq = max(0, min(kT, dk - d0) + kK - 1) / kK;   // q slabs here
   for (int n = 0; n < nc; ++n) {
@@ -106,7 +106,7 @@ __global__ void __cluster_dims__(kC, 1, 1) __launch_bounds__(kThreads, 1)
       for (int tt = 0; tt < ntt; ++tt) {
         const int t0 = kT * tt;
         const bf16* qb = c.q_plane(bh) + (row0 + t0) * dkp + d0;
-        const uint32_t qc = c.count4(bh * nc + n, t0 / kK, 0);
+        const uint32_t qc = c.pf().count4(bh * nc + n, t0 / kK, 0);
         float ya[4][4][4] = {};
         auto stage = [&](int g, int st) {
           stage_parts<false>(ring + st * kWalkStage, qb + kK * g, pk, dkp,
@@ -153,7 +153,7 @@ __global__ void __cluster_dims__(kC, 1, 1) __launch_bounds__(kThreads, 1)
     auto stage = [&](int j, int st) {
       bf16* s = ring + st * kWalkStage;
       stage_parts<true>(s, kb + (int64_t)kK * j * dkp, pk, dkp, Q - kK * j,
-                        dkp - d0, nk, c.count(bh * nc + n, j, 1));
+                        dkp - d0, nk, c.pf().count(bh * nc + n, j, 1));
       stage_parts<true>(s + kNI * kColPlane, wvb + (int64_t)kK * j * dvp, pv,
                         dvp, Q - kK * j, dvp - e0, kNP, ~0u);
     };
@@ -193,7 +193,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const bf16* pb = c.p_plane(bhn, 0) + (int64_t)t0 * Qp;
   const bf16* vb = c.v_plane(bh) + row0 * dvp + e0;
   const int64_t pv = (int64_t)c.S * dvp;
-  const int nv = c.parts(bhn, 0, c.J(), 2);
+  const int nv = c.pf().parts(bhn, 0, c.J(), 2);
   float acc[4][4][4] = {};
   auto stage = [&](int g, int st) {
     bf16* s = smem + st * kYStage;
@@ -201,7 +201,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     stage_parts<false>(s, pb + s0, (int64_t)Q * Qp, Qp, Q - t0, Qp - s0,
                        kNP, ~0u);
     stage_parts<true>(s + kNP * kRowPlane, vb + (int64_t)s0 * dvp, pv, dvp,
-                      Q - s0, dvp - e0, nv, c.count(bhn, g, 2));
+                      Q - s0, dvp - e0, nv, c.pf().count(bhn, g, 2));
   };
   auto mma = [&](int, int st) {
     const bf16* s = smem + st * kYStage;

@@ -155,6 +155,31 @@ def substitute(text: str, subs) -> str:
     return text
 
 
+def substitute_with_common(text: str, common: str, subs):
+    """``subs`` applied to a kernel's source and, for an anchor the source
+    does not hold (a helper of ``csrc/common.cuh``), to its copy of
+    common.cuh; each anchor must be found once in one of them. Returns
+    (source, common.cuh)."""
+    for old, new in subs:
+        if text.count(old) == 0 and common.count(old) == 1:
+            common = common.replace(old, new)
+        else:
+            text = substitute(text, [(old, new)])
+    return text, common
+
+
+def write_candidate(out_dir: Path, name: str, text: str, common: str,
+                    probe: str, include: str) -> str:
+    """A candidate's source and its own copy of common.cuh into out_dir /
+    name (an include of "common.cuh" there finds that copy first); returns
+    the probe's text, whose ``#include "<include>"`` now names the copy."""
+    sub = out_dir / name
+    sub.mkdir(parents=True, exist_ok=True)
+    (sub / "src.cu").write_text(text)
+    (sub / "common.cuh").write_text(common)
+    return probe.replace(f'"{include}"', f'"{name}/src.cu"')
+
+
 _ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_int64] * 9
 
 
@@ -177,13 +202,14 @@ def build(out_dir: Path, baseline: Path) -> dict:
         else:
             sources["a_" + path.stem] = path.read_text()
     # the designs and their variants through the probe, which runs their
-    # launches one by one
+    # launches one by one; a variant's anchors may lie in common.cuh
+    common = (_build.CSRC / "common.cuh").read_text()
     for d, text in designs.items():
         for v, subs in {"": [], **VARIANTS.get(d, {})}.items():
             name = f"{d}_{v}" if v else d
-            (out_dir / f"{name}_src.cu").write_text(substitute(text, subs))
-            sources[name] = PROBE.replace('"ssd_scan_wide.cu"',
-                                          f'"{name}_src.cu"')
+            src, com = substitute_with_common(text, common, subs)
+            sources[name] = write_candidate(out_dir, name, src, com, PROBE,
+                                            "ssd_scan_wide.cu")
     procs = {}
     for name, text in sources.items():
         src = out_dir / f"{name}.cu"

@@ -633,27 +633,40 @@ def test_ssd_scan_wide_is_two_deterministic_launches_on_card(cuda):
 
 
 # K4's wide backward (``csrc/ssd_scan_wide_bwd.cu``) against
-# ssd_scan_bwd_ref: (B, S, H, dk, dv, chunk, gates, initial state and
-# dh_final). The smoke config's mLSTM shape (dk 128, dv 129: a 128-wide
-# column tile and one of a single column; chunk 64, two chunks) with the
-# model's gates and gentle ones, one full-width head of xlstm-1.3b's
-# training shape (dk 1024, dv 1025, chunk 256, two chunks), and sizes that
-# are no multiple of the 128 x 128 tiles (dk 200, dv 77, chunk 96).
+# ssd_scan_bwd_ref: (B, S, H, dk, dv, chunk, gates, init), init True for an
+# initial state and a dh_final, False for neither (autograd's call in
+# training), "h0" for the initial state alone and "dh" for dh_final alone
+# (each of the kernel's skips of a state known to be zero on its own). The
+# smoke config's mLSTM shape (dk 128, dv 129: a 128-wide column tile and one
+# of a single column; chunk 64, two chunks) with the model's gates and
+# gentle ones, one full-width head of xlstm-1.3b's training shape (dk 1024,
+# dv 1025, chunk 256, two chunks), sizes that are no multiple of the
+# 128 x 128 tiles (dk 200, dv 77, chunk 96), and other chunk counts: eight
+# (the state's gradient carried through the middle chunks), three, and one
+# (the first chunk also the last).
 SSD_WIDE_BWD_SMOKE = (2, 128, 4, 128, 129, 64)
 SSD_WIDE_BWD_CASES = [(*SSD_WIDE_BWD_SMOKE, "mlstm", False),
                       (*SSD_WIDE_BWD_SMOKE, "gentle", True),
                       (1, 512, 1, 1024, 1025, 256, "mlstm", True),
-                      (2, 192, 3, 200, 77, 96, "gentle", True)]
+                      (2, 192, 3, 200, 77, 96, "gentle", True),
+                      (*SSD_WIDE_BWD_SMOKE, "mlstm", "h0"),
+                      (*SSD_WIDE_BWD_SMOKE, "gentle", "dh"),
+                      (1, 512, 2, 128, 129, 64, "gentle", True),
+                      (1, 384, 2, 256, 257, 128, "mlstm", "dh"),
+                      (2, 64, 2, 160, 161, 64, "mlstm", False),
+                      (2, 64, 2, 160, 161, 64, "gentle", True)]
 
 
 def _wide_bwd_case(B, S, H, dk, dv, chunk, gates, init, dev):
     """mLSTM's operands, the wide forward's states on the card, dy and
-    dh_final, and the plain backward's f32 result on them."""
-    q, k, v, a, i, h0 = _wide_inputs(B, S, H, dk, dv, gates, init, dev)
+    dh_final (``init`` as in ``SSD_WIDE_BWD_CASES``), and the plain
+    backward's f32 result on them."""
+    q, k, v, a, i, h0 = _wide_inputs(B, S, H, dk, dv, gates,
+                                     init in (True, "h0"), dev)
     gen = torch.Generator(device=dev).manual_seed(29)
     dy = torch.randn(v.shape, generator=gen, device=dev)
     dh = torch.randn((B, H, dk, dv), generator=gen, device=dev) \
-        if init else None
+        if init in (True, "dh") else None
     _, _, states = ssd_scan._launch_fwd(q, k, v, a, i, h0, chunk, True)
     want = ssd_scan.ssd_scan_bwd_ref(q, k, v, a, i, dy, dh, chunk=chunk,
                                      initial_state=h0, states=states)
@@ -686,6 +699,39 @@ def test_ssd_scan_wide_bwd_matches_plain_backward_on_card(
     assert all(torch.isfinite(g).all() for g in got)
     margins = ssd_scan.bwd_margins(got, want)
     assert max(margins.values()) <= 1, margins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [SSD_WIDE_BWD_SMOKE,
+                                   (1, 512, 1, 1024, 1025, 256)])
+def test_ssd_scan_wide_bwd_skips_move_no_bit_on_card(cuda, shape):
+    """Without an initial state ``_SSDScan`` asks for no dh0, and the wide
+    backward leaves out the update that only dh0 reads: its dq, dk, dv, da
+    and di (with a loss on y alone, so no dh_final either) are bitwise
+    those of ``ssd_scan_bwd`` called with dh0 asked for on the same states;
+    and that call's dh0 is the plain backward's within the tolerance."""
+    B, S, H, dk, dv, chunk = shape
+    q, k, v, a, i, _ = _wide_inputs(B, S, H, dk, dv, "mlstm", False, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(31)
+    dy = torch.randn(v.shape, generator=gen, device=cuda)
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v, a, i)]
+    before = ssd_scan.ssd_scan.bwd_launches
+    y, _ = ssd_scan.ssd_scan(*leaves, chunk=chunk)
+    got = torch.autograd.grad(y, leaves, dy)
+    assert ssd_scan.ssd_scan.bwd_launches == before + 1
+    _, _, states = ssd_scan._launch_fwd(q, k, v, a, i, None, chunk, True)
+    direct = ssd_scan.ssd_scan_bwd(q, k, v, a, i, dy, chunk=chunk,
+                                   states=states)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, direct[:5]))
+    want = ssd_scan.ssd_scan_bwd_ref(q, k, v, a, i, dy, chunk=chunk,
+                                     states=states)
+    margins = ssd_scan.bwd_margins(direct, want)
+    assert max(margins.values()) <= 1, margins
+    none = ssd_scan.ssd_scan_bwd(q, k, v, a, i, dy, chunk=chunk,
+                                 states=states, want_dh0=False)
+    assert none[5] is None
+    assert all(torch.equal(x, y) for x, y in zip(none[:5], direct[:5]))
 
 
 @pytest.mark.cuda

@@ -305,6 +305,47 @@ def test_two_part_split_stays_inside_the_backward_tolerance(gates):
     assert max(ssd_scan.bwd_margins(one, want).values()) > 1
 
 
+@pytest.mark.parametrize("values", ["bf16", "f32"])
+def test_wide_split_stays_inside_the_backward_tolerance(values):
+    """The wide backward kernel (``csrc/ssd_scan_wide_bwd.cu``) splits the
+    operands that are f32 by nature (P, R, the states H_n, their gradients
+    and e^{cum_t} q_t) into ``WIDE_PARTS`` bf16 parts, and f32 q, k, v and
+    dy into three, which hold them exactly. Emulated in the plain backward
+    (``parts=WIDE_PARTS``) at one full-width head pair of xlstm-1.3b's
+    training shape (S 512, H 2, dk 1024, dv 1025, chunk 256; mLSTM's gates
+    with the input gate up to e^10; f32 dy; no initial state, no dh_final,
+    as autograd calls it in training), with q, k and v bf16-valued (the
+    model's) or full f32, that stays inside ``ssd_scan.bwd_margins`` around
+    the plain f32 backward, one part (the fault ``bwd_one_part``) falls
+    outside it, and ``parts=None`` is the plain backward bit for bit."""
+    rng = np.random.default_rng(11)
+    B, S, H, dk, Q = 1, 512, 2, 1024, 256
+    dv = dk + 1
+    f = np.float32
+
+    def normal(shape, scale=1.0):
+        x = torch.from_numpy((rng.standard_normal(shape) * scale).astype(f))
+        return x.to(torch.bfloat16).float() if values == "bf16" else x
+    q = normal((B, S, H, dk), dk ** -0.5)
+    k = normal((B, S, H, dk), dk ** -0.5)
+    v = normal((B, S, H, dv))
+    v[..., -1] = 1.0
+    a = torch.from_numpy((-np.logaddexp(
+        0.0, -(3.0 + rng.standard_normal((B, S, H))))).astype(f))
+    i = torch.from_numpy(np.exp(np.clip(
+        4.0 * rng.standard_normal((B, S, H)), -10, 10)).astype(f))
+    dy = torch.from_numpy(rng.standard_normal((B, S, H, dv)).astype(f))
+    args = (q, k, v, a, i, dy)
+    want = ssd_scan.ssd_scan_bwd_ref(*args, chunk=Q)
+    two = ssd_scan.ssd_scan_bwd_ref(*args, chunk=Q,
+                                    parts=ssd_scan.WIDE_PARTS)
+    assert max(ssd_scan.bwd_margins(two, want).values()) <= 1
+    one = ssd_scan.ssd_scan_bwd_ref(*args, chunk=Q, fault="bwd_one_part")
+    assert max(ssd_scan.bwd_margins(one, want).values()) > 1
+    again = ssd_scan.ssd_scan_bwd_ref(*args, chunk=Q, parts=None)
+    assert all(torch.equal(x, y) for x, y in zip(again, want))
+
+
 def test_no_gradient_wanted_takes_no_function():
     """Without grad (or with no input that requires it) ``ssd_scan``
     returns the plain forward's values with no graph, as the serve path
@@ -341,3 +382,53 @@ def test_backward_bound_accounting():
     assert b["bound_by"] == "bytes"
     assert b["bound_ms"] == pytest.approx(195_035_136 / 3.35e12 * 1e3)
     assert b["f32_core_bound_ms"] == pytest.approx(fl / 67e12 * 1e3)
+    # xlstm-1.3b's training shape (B 4, S 512, H 4, dk 1024, dv 1025, chunk
+    # 256, f32, q and k per head): everything, then as autograd calls the
+    # wide backward in training (no initial state, no dh_final, no dh0:
+    # H_0 dy, the last chunk's dH v and dHᵀ k, the first chunk's update and
+    # both chunks' <H, dH> are products of known zeros or unread)
+    B, S, H, dk, dv, Q = 4, 512, 4, 1024, 1025, 256
+    assert ssd_scan.bwd_flops(B, S, H, dk, dv, Q) == 79_637_331_968
+    state = Q * dk * dv
+    cut = dict(initial_state=False, dh_final=False, dh0=False)
+    fl = ssd_scan.bwd_flops(B, S, H, dk, dv, Q, **cut)
+    assert fl == 45_176_864_768
+    assert fl == 79_637_331_968 - 2 * B * H * (4 * state + 2 * dk * dv)
+    # each skip alone, and the two zero dots of one chunk counted once
+    assert ssd_scan.bwd_flops(B, S, H, dk, dv, Q, initial_state=False) == \
+        79_637_331_968 - 2 * B * H * (state + dk * dv)
+    assert ssd_scan.bwd_flops(B, S, H, dk, dv, Q, dh_final=False) == \
+        79_637_331_968 - 2 * B * H * (2 * state + dk * dv)
+    assert ssd_scan.bwd_flops(B, S, H, dk, dv, Q, dh0=False) == \
+        79_637_331_968 - 2 * B * H * state
+    assert ssd_scan.bwd_flops(B, Q, H, dk, dv, Q, initial_state=False,
+                              dh_final=False) == \
+        ssd_scan.bwd_flops(B, Q, H, dk, dv, Q) - 2 * B * H * (
+            3 * state + dk * dv)
+    # bytes: without an initial state the state before the first chunk is
+    # not read, without dh0 nothing is written for it; the 48 states of a
+    # call with both (and no dh_final) come down to the 16 before chunk 1
+    one = dk * dv * 4
+    full = ssd_scan.bwd_hbm_bytes(B, S, H, dk, dv, Q, 4, qk_per_head=True,
+                                  dh_final=False)
+    nb = ssd_scan.bwd_hbm_bytes(B, S, H, dk, dv, Q, 4, qk_per_head=True,
+                                **cut)
+    assert full["states"] == 3 * B * H * one
+    assert nb["states"] == B * H * one
+    assert full["minimum"] - nb["minimum"] == 2 * B * H * one
+    assert nb["minimum"] == 302_284_800
+    for flag in ("initial_state", "dh0"):
+        assert ssd_scan.bwd_hbm_bytes(
+            B, S, H, dk, dv, Q, 4, qk_per_head=True, dh_final=False,
+            **{flag: False})["minimum"] == full["minimum"] - B * H * one
+    b = ssd_scan.bwd_bound(B, S, H, dk, dv, Q, 4, 3.35e12, 989e12, 67e12,
+                           qk_per_head=True, **cut)
+    assert b["bound_by"] == "bytes"
+    assert round(b["bound_ms"], 4) == 0.0902
+    assert b["bound_ms"] == pytest.approx(302_284_800 / 3.35e12 * 1e3)
+    assert round(b["f32_core_bound_ms"], 3) == 0.674
+    assert b["f32_core_bound_ms"] == pytest.approx(fl / 67e12 * 1e3)
+    # with an initial state and dh0 asked for (no dh_final), as before
+    b = ssd_scan.bwd_bound(B, S, H, dk, dv, Q, 4, 3.35e12, 989e12, 67e12,
+                           qk_per_head=True, dh_final=False)
+    assert round(b["bound_ms"], 4) == 0.1303
