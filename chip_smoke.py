@@ -84,12 +84,14 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   super-layer of 2 Mamba2 layers and the shared block, one
                   tail layer), batch 2, a 256-token prompt, 4 greedy tokens,
                   f32 and bf16; K4 must launch 3 times, no other kernel
-  zamba_serve     the third main path: zamba2-7b at full size (81 layers,
-                  seeded random weights, bf16) serving batch 4, a 4096-token
-                  prompt and 32 tokens; K4 must launch 81 times and no other
-                  kernel; a second same-seed run must emit the same tokens;
-                  then one prefill and four decode steps under
-                  torch.profiler
+  zamba_serve     the third main path: zamba2-7b at full width cut to 15
+                  of its 81 layers (2 super-layers and the 3 tail layers;
+                  seeded random weights, bf16) serving batch 4, a
+                  4096-token prompt and 32 tokens; K4 must launch 15 times
+                  and no other kernel; a second same-seed run must emit the
+                  same tokens; then one prefill and four decode steps under
+                  torch.profiler. The cut keeps every check; the full
+                  depth's times are in PERF.md section 5
   ssd_bwd_kernel  K4's backward (``ssd_scan_bwd``) against the plain
                   backward ``ssd_scan_bwd_ref`` and against autograd
                   through the plain forward, on the states K4's forward
@@ -222,14 +224,16 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   prompt (two chunks), 4 greedy tokens, f32 and bf16 (bf16
                   within PARITY_TOL plus the CPU's own bf16-vs-f32 gap);
                   K4 must launch 7 times (its wide path), no other kernel
-  xlstm_serve     the fourth serve path: xlstm-1.3b at full size (48
-                  layers, seeded random weights, bf16) serving batch 4, a
-                  1024-token prompt and 32 tokens; K4 must launch 42
-                  times and no other kernel; a second same-seed run must
-                  emit the same tokens; prefill ms, decode ms a step
-                  against the floor (weights read and mLSTM states read
-                  and written once a step), peak memory; then one prefill
-                  and four decode steps under torch.profiler
+  xlstm_serve     the fourth serve path: xlstm-1.3b at full width cut to
+                  8 of its 48 layers (one super-layer; seeded random
+                  weights, bf16) serving batch 4, a 1024-token prompt and
+                  32 tokens; K4 must launch 7 times and no other kernel; a
+                  second same-seed run must emit the same tokens; prefill
+                  ms, decode ms a step against the floor (weights read and
+                  mLSTM states read and written once a step), peak memory;
+                  then one prefill and four decode steps under
+                  torch.profiler. The cut keeps every check; the full
+                  depth's times are in PERF.md section 5
   ssd_wide_bwd_kernel  K4's wide backward (``ssd_scan_bwd`` at mLSTM's
                   heads, ``csrc/ssd_scan_wide_bwd.cu``) against the plain
                   backward and against autograd through the plain forward,
@@ -258,11 +262,49 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
   xlstm_round     xlstm-1.3b at full width cut to one super-layer (D =
                   508,960,796) through ``SDFLBProtocol`` as
                   ``launch/train.py`` builds it (AdamW, remat, no chain),
-                  as ``zamba_round``: 3 sync rounds at W = 4 (batch 4, seq
-                  512) and 3 async rounds, the held-out loss falling, only
+                  as ``zamba_round`` but 2 rounds a run: 2 sync rounds at
+                  W = 4 (batch 4, seq 512) and 2 async rounds, the held-out loss falling, only
                   K4's wide forward and wide backward launching, a bitwise
                   same-seed rerun, the deterministic-algorithms probe, a
                   profiled worker step
+  mla_serve       minicpm3-4b (Multi-head Latent Attention): card against
+                  CPU at full width cut to 2 layers (f32 and bf16; batch 2,
+                  prompt 160, 4 greedy tokens: prefill logits, the
+                  absorbed decode's logits and tokens within PARITY_TOL),
+                  and the loss and every leaf's gradient at batch 1, seq
+                  256 within ZGRAD_TOL; then at full size (62 layers,
+                  bf16) serving batch 4, a 2048-token prompt (two KV
+                  chunks: the chunked online softmax) and 32 tokens twice
+                  with the same tokens: prefill ms, decode ms a step
+                  against the floor (weights and the latent cache read
+                  once a step), the latent cache's bytes a token against
+                  expanded K/V, peak memory, four decode steps under
+                  torch.profiler; no kernel launches
+  mla_round       minicpm3-4b at full width cut to 2 layers (D =
+                  501,406,208) as ``zamba_round`` with no kernel: 3 sync
+                  rounds at W = 4, async rounds at the W the memory
+                  reckoning allows, the held-out loss falling, a bitwise
+                  same-seed rerun, the deterministic-algorithms probe, a
+                  profiled worker step
+  whisper_serve   whisper-base (the encoder-decoder, 1500 frames of the
+                  stub frontend): card against CPU at full size (f32 and
+                  bf16; batch 2, prompt 64, 4 greedy tokens within
+                  PARITY_TOL) and the loss and every leaf's gradient
+                  (batch 1, 64 tokens) within ZGRAD_TOL; then serving batch
+                  4, a 64-token prompt and 64 tokens twice with the same
+                  tokens: prefill ms, decode ms a step against the floor
+                  (the decoder's weights, the tied head and the self and
+                  cross caches read once a step), peak memory; no kernel
+  whisper_round   whisper-base at full size (D = 71,426,560) through
+                  ``SDFLBProtocol`` (AdamW, remat, no chain), 1500 frames a
+                  sample from a seeded numpy generator: 3 sync rounds at W
+                  = 8 (2 clusters, batch 4, 256 tokens) and 3 async, the
+                  held-out loss falling, no kernel, a bitwise same-seed
+                  rerun, the deterministic-algorithms probe, a profiled
+                  worker step
+Each of the four reports the device memory held when it starts, before
+and after the cycle collector runs (``memory_before_release``,
+``memory_held_at_start``).
 
 Then it prints the run's total wall with each phase's wall seconds, the
 card's ``nvidia-smi`` line, one
@@ -332,6 +374,10 @@ PARITY_TOL = {"float32": 1e-3, "bfloat16": 0.125}
 
 ZAMBA = "zamba2-7b"
 ZSERVE = dict(batch=4, prompt_len=4096, gen=32)  # prompt: 32 SSD chunks
+# zamba_serve's depth: 2 super-layers (6 Mamba2 layers and the shared block
+# each) and the 3 tail layers of the full 13 + 3, at full width; the full
+# depth's figures are in PERF.md section 5
+ZSERVE_CUTS = {"num_layers": 15}
 # one super-layer of 2 Mamba2 layers + the shared block, and 1 tail layer
 ZPARITY_CUTS = {"num_layers": 3, "shared_attn_every": 2}
 # K4 at zamba2-7b's prefill shape; the smoke config's SSD shape (d 256:
@@ -359,9 +405,16 @@ SSD_WIDE_CASES = [(SSD_WIDE_SERVE, "mlstm", False),
                    True)]
 XLSTM = "xlstm-1.3b"
 XSERVE = dict(batch=4, prompt_len=1024, gen=32)   # prompt: 4 mLSTM chunks
+# xlstm_serve's depth: one super-layer (7 mLSTM blocks and the sLSTM
+# block) of the full 6, at full width; the full depth's figures are in
+# PERF.md section 5
+XSERVE_CUTS = {"num_layers": 8}
 # one super-layer: 7 mLSTM blocks and the sLSTM block, at full width
 XPARITY_CUTS = {"num_layers": 8}
 XPARITY = dict(batch=2, prompt_len=512, gen=4, seed=3)
+# xlstm_round's sync and async rounds (zamba_round's 3 each; the rounds are
+# ~5.4 s and ~2.8 s, the sLSTM loop on the host, PERF.md section 5)
+XROUNDS = 2
 # K4's backward at zamba2-7b's training shape (batch 4, seq 512: 4 chunks),
 # the smoke shape, one chunk, a run from an initial state with a nonzero
 # dh_final, and per-head q and k; the tolerance is ssd_scan.BWD_ATOL_REL
@@ -1400,14 +1453,14 @@ def phase_zamba_parity():
 
 
 def phase_zamba_serve(name):
-    """The zamba2 serve path at full size: two same-seed runs, K4 counted
-    over the first, then one prefill and four decode steps under
-    torch.profiler."""
+    """The zamba2 serve path at full width cut to ``ZSERVE_CUTS``: two
+    same-seed runs, K4 counted over the first (once a Mamba2 layer), then
+    one prefill and four decode steps under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import api, hybrid
-    cfg = get_config(ZAMBA)
+    cfg = get_config(ZAMBA).replace(**ZSERVE_CUTS)
     B, P, G = ZSERVE["batch"], ZSERVE["prompt_len"], ZSERVE["gen"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1431,6 +1484,7 @@ def phase_zamba_serve(name):
                              "tokens")
     k, n_super, n_tail = hybrid._split_layers(cfg)
     rec = {"phase": "zamba_serve", "arch": ZAMBA, **ZSERVE,
+           "cuts": ZSERVE_CUTS,
            "layers": cfg.num_layers, "super_layers": n_super,
            "mamba_per_super": k, "tail_layers": n_tail, "dtype": cfg.dtype,
            "prefill_ms": r.prefill_s * 1e3,
@@ -2309,22 +2363,27 @@ def _release():
 
 
 def _round_run(cfg, fresh, workers, async_mode, rounds, seed=0,
-               kernels=("ssd_scan", "ssd_scan_bwd"), phase="zamba_round"):
+               kernels=("ssd_scan", "ssd_scan_bwd"), phase="zamba_round",
+               shape=None, frames=None):
     """``rounds`` rounds of SDFLBProtocol over ``cfg`` on the card, built as
     launch/train.py builds it (no chain): each round's wall, tokens/s, K4's
     forward and backward launches, scores; the peak memory; before (the
     same seeded init) and after, the held-out loss on the continuation of
-    the first round's streams (``ZROUND``), which must fall, and the loss
-    on ``fresh``, a batch of an unrelated seed. Each of ``kernels`` must
-    launch every round and no other kernel at all."""
+    the first round's streams, which must fall, and the loss on ``fresh``,
+    a batch of an unrelated seed. ``shape`` holds the clusters, batch and
+    seq (``ZROUND`` by default); ``frames(r)``, where given, the (workers,
+    batch, encoder_seq, d) frames of round r (whisper), the first round's
+    also the held-out set's. Each of ``kernels`` must launch every round
+    and no other kernel at all."""
     from repro_torch.configs.base import FederationConfig, TrainConfig
     from repro_torch.core import async_sim
     from repro_torch.core.protocol import SDFLBProtocol
     from repro_torch.data.datasets import synthetic_tokens
     from repro_torch.models import api
     dev = torch.device("cuda")
-    fed = FederationConfig(num_clusters=ZROUND["clusters"],
-                           workers_per_cluster=workers // ZROUND["clusters"],
+    shape = ZROUND if shape is None else shape
+    fed = FederationConfig(num_clusters=shape["clusters"],
+                           workers_per_cluster=workers // shape["clusters"],
                            async_mode=async_mode, trust_threshold=0.3,
                            mode="allreduce")
     tc = TrainConfig(optimizer="adamw", lr=3e-4, remat=True, grad_clip=1.0)
@@ -2332,20 +2391,23 @@ def _round_run(cfg, fresh, workers, async_mode, rounds, seed=0,
     torch.cuda.reset_peak_memory_stats()
     proto = SDFLBProtocol(cfg, fed, tc, use_blockchain=False, seed=seed,
                           device=dev)
-    B, S = ZROUND["batch"], ZROUND["seq"]
+    B, S = shape["batch"], shape["seq"]
     # each round's streams at twice the length: the first half trains, the
     # second half of the first round's is the held-out set
     streams = [synthetic_tokens(workers, B, 2 * S, cfg.vocab_size,
                                 seed=seed + r) for r in range(rounds)]
     heldout = {k: v[..., S:].reshape(workers * B, S)
                for k, v in streams[0].items()}
+    if frames is not None:
+        heldout["frames"] = frames(0).reshape((workers * B,)
+                                              + frames(0).shape[2:])
     before = (_heldout_loss(cfg, proto.global_params, heldout, dev),
               _heldout_loss(cfg, proto.global_params, fresh, dev))
     torch.cuda.empty_cache()
     scheduler = async_sim.AsyncScheduler(
         async_sim.heterogeneous_profiles(workers, seed=seed), seed=seed,
         buffer_size=max(2, workers // 2)) if async_mode else None
-    tokens = workers * ZROUND["batch"] * ZROUND["seq"]
+    tokens = workers * B * S
     rec = {"workers": workers, "round_wall_s": [], "tokens_per_s": [],
            "k4_launches": [], "k4_bwd_launches": [], "mean_loss": [],
            "mean_score": [], "participation": []}
@@ -2354,6 +2416,8 @@ def _round_run(cfg, fresh, workers, async_mode, rounds, seed=0,
         part = scheduler.next_aggregation()[1] if scheduler else None
         data = {k: np.ascontiguousarray(v[..., :S])
                 for k, v in streams[r].items()}
+        if frames is not None:
+            data["frames"] = frames(r)
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.monotonic()
@@ -2388,17 +2452,20 @@ def _round_run(cfg, fresh, workers, async_mode, rounds, seed=0,
     return proto, rec, first
 
 
-def _k4_round(phase, arch, cuts, extra):
-    """``arch`` at full width cut to ``cuts``, federated on the card: 3
-    sync rounds at W = 4 and 3 async rounds, each run with a falling
-    held-out loss (``_round_run``) and K4's forward and backward on every
-    round; a same-seed one-round rerun with bitwise-equal global params and
-    scores; one worker's backward under
+def _k4_round(phase, arch, cuts, extra, kernels=("ssd_scan", "ssd_scan_bwd"),
+              ours=("ssd_",), label="k4_s", rounds=ZROUND["rounds"]):
+    """``arch`` at full width cut to ``cuts``, federated on the card:
+    ``rounds`` sync rounds at W = 4 and as many async rounds, each run with
+    a falling
+    held-out loss (``_round_run``) and each of ``kernels`` (K4's forward
+    and backward by default) on every round, no other; a same-seed
+    one-round rerun with bitwise-equal global params and scores; one
+    worker's backward under
     ``torch.use_deterministic_algorithms(True, warn_only=True)`` flags no
-    op, and a warm one under torch.profiler (device activity only: K4's
-    share and the device's busy share of the step, reported).
-    ``extra(cfg)`` adds fields to the phase's line. Returns the launches
-    of the rounds."""
+    op, and a warm one under torch.profiler (device activity only: the
+    share of the kernels named by ``ours``, as ``label``, and the device's
+    busy share of the step, reported). ``extra(cfg)`` adds fields to the
+    phase's line. Returns the launches of the rounds."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.datasets import synthetic_tokens
     from repro_torch.models import api
@@ -2407,16 +2474,19 @@ def _k4_round(phase, arch, cuts, extra):
     fresh = {k: v[0] for k, v in synthetic_tokens(
         1, ZROUND["batch"], ZROUND["seq"], cfg.vocab_size,
         seed=ZROUND_FRESH_SEED).items()}
+    before_release = torch.cuda.memory_allocated()
     _release()
     held = torch.cuda.memory_allocated()
     free, total = torch.cuda.mem_get_info()
     out = {"phase": phase, "arch": arch, "cuts": cuts, **ZROUND,
-           "dtype": cfg.dtype, "chain": False, **extra(cfg),
+           "rounds": rounds, "dtype": cfg.dtype, "chain": False,
+           **extra(cfg),
+           "memory_before_release": before_release,
            "memory_held_at_start": held, "device_free_at_start": free}
     reset_counts()
     W = ZROUND["workers"]
-    proto, out["sync"], (p1, s1) = _round_run(cfg, fresh, W, False,
-                                              ZROUND["rounds"], phase=phase)
+    proto, out["sync"], (p1, s1) = _round_run(cfg, fresh, W, False, rounds,
+                                              kernels=kernels, phase=phase)
     D = api.param_count(proto.global_params)
     out["D"] = D
     out["sync"]["bytes_per_param_per_worker"] = \
@@ -2428,20 +2498,12 @@ def _k4_round(phase, arch, cuts, extra):
     out["nondeterministic_ops_flagged"] = flagged
     out["cublas_notes"] = cublas
     check(not flagged, f"{phase}: nondeterministic ops {flagged}")
-    from torch.profiler import ProfilerActivity, profile
-    step()
-    prof = profile(activities=[ProfilerActivity.CUDA])
-    prof.start()
-    t0 = time.monotonic()
-    step()
-    wall = time.monotonic() - t0
-    prof.stop()
-    out["worker_step_profile"] = device_profile(prof, wall, ours=("ssd_",),
-                                                label="k4_s")
-    del step, prof
+    out["worker_step_profile"] = _device_step_profile(step, ours, label)
+    del step
     _release()
     # a same-seed rerun of the first round
-    again, rerun, (p2, s2) = _round_run(cfg, fresh, W, False, 1, phase=phase)
+    again, rerun, (p2, s2) = _round_run(cfg, fresh, W, False, 1,
+                                        kernels=kernels, phase=phase)
     identical = all(torch.equal(p1[k], p2[k]) for k in p1) and \
         np.array_equal(s1, s2)
     check(identical, f"{phase}: same-seed rounds differ")
@@ -2455,8 +2517,8 @@ def _k4_round(phase, arch, cuts, extra):
     Wa = next((w for w in (4, 2) if need[w] <= free - ZROUND_FREE), 2)
     out["async_reckoning"] = {"bytes_needed": need, "device_free": free,
                               "workers": Wa}
-    proto, out["async"], _ = _round_run(cfg, fresh, Wa, True,
-                                        ZROUND["rounds"], phase=phase)
+    proto, out["async"], _ = _round_run(cfg, fresh, Wa, True, rounds,
+                                        kernels=kernels, phase=phase)
     out["async"]["bytes_per_param_per_worker"] = \
         (out["async"]["max_memory_allocated"] - held) / (D * Wa)
     del proto
@@ -2481,15 +2543,16 @@ def phase_zamba_round(name):
 
 def phase_xlstm_round(name):
     """xlstm-1.3b at full width cut to one super-layer (7 mLSTM blocks and
-    the sLSTM block) federated on the card (``_k4_round``): K4's wide
-    forward and its wide backward on every round, and no other kernel."""
+    the sLSTM block) federated on the card (``_k4_round``, ``XROUNDS``
+    sync and async rounds): K4's wide forward and its wide backward on
+    every round, and no other kernel."""
     from repro_torch.models import xlstm
     return _k4_round("xlstm_round", XLSTM, XPARITY_CUTS, lambda cfg: {
         "d_model": cfg.d_model,
         "mlstm_blocks": xlstm._split_layers(cfg)[0],
         "mlstm_heads": cfg.ssm.num_ssm_heads,
         "mlstm_head_dim": cfg.d_model * cfg.ssm.expand
-        // cfg.ssm.num_ssm_heads})
+        // cfg.ssm.num_ssm_heads}, rounds=XROUNDS)
 
 
 def _settle_decisions(fed, rounds_scores, W):
@@ -2770,6 +2833,20 @@ def _deterministic_probe(step):
                    if "determinis" in str(w.message)})
     return ([m for m in msgs if "CuBLAS" not in m],
             [m for m in msgs if "CuBLAS" in m])
+
+
+def _device_step_profile(step, ours, label):
+    """A warm ``step`` under torch.profiler, device activity only: its
+    busy share and the time of the kernels named by ``ours``."""
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.monotonic()
+    step()
+    wall = time.monotonic() - t0
+    prof.stop()
+    return device_profile(prof, wall, ours=ours, label=label)
 
 
 def _step_profile(step):
@@ -3443,9 +3520,10 @@ def phase_xlstm_parity():
 
 
 def phase_xlstm_serve(name):
-    """xlstm-1.3b at full size (48 layers, seeded random weights, bf16)
-    serving ``XSERVE`` twice: K4 launches 42 times a prefill (its wide
-    path, once an mLSTM block) and no other kernel, the same-seed rerun
+    """xlstm-1.3b at full width cut to ``XSERVE_CUTS`` (8 of its 48
+    layers; seeded random weights, bf16) serving ``XSERVE`` twice: K4
+    launches 7 times a prefill (its wide path, once an mLSTM block) and
+    no other kernel, the same-seed rerun
     emits the same tokens; prefill and decode times, the decode floor (the
     weights read once and the recurrent states read and written once a
     step, over the card's memory rate), peak memory; then one prefill and
@@ -3454,7 +3532,7 @@ def phase_xlstm_serve(name):
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
     from repro_torch.models import api, xlstm
-    cfg = get_config(XLSTM)
+    cfg = get_config(XLSTM).replace(**XSERVE_CUTS)
     n_m, n_super = xlstm._split_layers(cfg)
     B, P, G = XSERVE["batch"], XSERVE["prompt_len"], XSERVE["gen"]
     _release()
@@ -3479,6 +3557,7 @@ def phase_xlstm_serve(name):
         raise AssertionError("same-seed xlstm serves emitted different "
                              "tokens")
     rec = {"phase": "xlstm_serve", "arch": XLSTM, **XSERVE,
+           "cuts": XSERVE_CUTS,
            "layers": cfg.num_layers, "super_layers": n_super,
            "mlstm_per_super": n_m, "dtype": cfg.dtype,
            "prefill_ms": r.prefill_s * 1e3,
@@ -3502,7 +3581,8 @@ def phase_xlstm_serve(name):
     acts = (ProfilerActivity.CPU, ProfilerActivity.CUDA)
     with torch.inference_mode():
         # where the prefill's device time goes: K4 against the rest. Its
-        # ~145k device activities come from the sLSTM loop; the device
+        # device activities (~145k at full depth) come from the sLSTM
+        # loop; the device
         # activity alone is recorded (the host's ops would triple what the
         # profiler then sorts). The profiler may lose device records late
         # in a long process (``_build.launch_records``), so they are
@@ -3946,6 +4026,372 @@ def phase_xlstm_grad_parity(control=None):
     check(not failures, f"xlstm_grad_parity: {failures}")
 
 
+# -- MLA and the encoder-decoder: minicpm3-4b and whisper-base ---------------
+
+# minicpm3-4b (Multi-head Latent Attention: q rank 768, latent rank 256, 40
+# heads of nope 64 + rope 32, v 64; d 2560, 62 layers, V 73,448; 4.26 B
+# parameters, bf16). Card against CPU at full width cut to 2 layers as
+# dense_serve; the full-size serve's prompt is two KV chunks of 1024, so
+# the prefill runs the chunked online softmax; its decode is the absorbed
+# form over the (62, B, S, 288) latent cache.
+MLA = "minicpm3-4b"
+MLA_CUTS = {"num_layers": 2}
+MLA_PARITY = dict(batch=2, prompt_len=160, gen=4, seed=3)
+MLA_SERVE = dict(batch=4, prompt_len=2048, gen=32)
+MLA_GRAD = dict(batch=1, seq=256, seed=5)
+# whisper-base (6 encoder and 6 decoder layers, d 512, 8 heads, V 51,865,
+# 1500 frames of the stub frontend; 71.4 M parameters, bf16), card against
+# CPU and served at full size; its decode context is 448 tokens
+WHISPER = "whisper-base"
+WHISPER_PARITY = dict(batch=2, prompt_len=64, gen=4, seed=3)
+WHISPER_SERVE = dict(batch=4, prompt_len=64, gen=64)
+WHISPER_GRAD = dict(batch=1, seq=64, seed=5)
+# whisper_round: W = 8 in 2 clusters, batch 4, 256 text tokens and 1500
+# frames a sample (normal, from a numpy generator of the round's seed)
+WROUND = dict(workers=8, clusters=2, batch=4, seq=256, rounds=3)
+WROUND_FRAMES_SEED = 500
+
+
+def _held_after_release():
+    """(device bytes allocated before ``_release()``, after it): what the
+    cycle collector frees of earlier phases' garbage, and what stays."""
+    before = torch.cuda.memory_allocated()
+    _release()
+    return before, torch.cuda.memory_allocated()
+
+
+def _grad_parity(cfg, params, batch, f32_grads=None):
+    """The loss and every leaf's gradient on the card against the CPU from
+    the same weights and batch (remat off), within ``ZGRAD_TOL`` of the
+    dtype; in bf16 each leaf's bound adds the CPU's own bf16-vs-f32 gap of
+    that leaf against ``f32_grads`` (the CPU's f32 gradients of the same
+    weights before rounding), as the MoE and xLSTM parities add the CPU's
+    bf16-vs-f32 gap to theirs: the CPU sums repeated tokens' embedding rows
+    in bf16 (``index_add_``), the card in f32. No kernel may launch.
+    Returns (the record, the CPU's gradients)."""
+    dev = torch.device("cuda")
+    tol = ZGRAD_TOL[cfg.dtype]
+    t0 = time.monotonic()
+    cpu_loss, cpu_g = _lm_grads(cfg, params, batch, False)
+    cpu_s = time.monotonic() - t0
+    reset_counts()
+    loss, g = _lm_grads(cfg, {k: v.to(dev) for k, v in params.items()},
+                        {k: v.to(dev) for k, v in batch.items()}, False)
+    counts = read_counts()
+    rel = _rel_errs(g, cpu_g)
+    gap = (_rel_errs(cpu_g, f32_grads) if f32_grads is not None
+           else {k: 0.0 for k in rel})
+    over = {k: rel[k] / (tol["grad"] + gap[k]) for k in rel}
+    worst = max(over, key=over.get)
+    rec = {"loss": loss, "cpu_loss": cpu_loss,
+           "loss_err": abs(loss - cpu_loss), "worst_leaf": worst,
+           "worst_rel_err": rel[worst], "worst_leaf_cpu_gap": gap[worst],
+           "worst_share_of_bound": over[worst],
+           "largest_rel_err": max(rel.values()), "leaves": len(rel),
+           "cpu_s": cpu_s, "launches": counts}
+    _expect("grad parity", counts, _trust_launches(0, 0))
+    check(np.isfinite(loss) and rec["loss_err"] <= tol["loss"]
+          and over[worst] <= 1.0, f"grad parity: {rec}")
+    return rec, cpu_g
+
+
+def _serve_twice(cfg, params, serve_kw, phase):
+    """``serve`` at ``serve_kw`` twice on the card from ``params`` (seed 0's
+    weights) and seed 0's inputs: no kernel launches, the greedy tokens are
+    the logits' argmax and the same both times. Returns (the first run,
+    the second, the first's peak memory)."""
+    from repro_torch.launch.serve import serve
+    B, G = serve_kw["batch"], serve_kw["gen"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    r = serve(cfg, seed=0, params=params, **serve_kw)
+    peak = torch.cuda.max_memory_allocated()
+    _expect(phase, read_counts(), _trust_launches(0, 0))
+    check(r.tokens.shape == (B, G)
+          and r.logits.shape == (B, G, cfg.vocab_size))
+    check(torch.isfinite(r.logits).all())
+    check(torch.equal(r.tokens, r.logits.float().argmax(-1)))
+    again = serve(cfg, seed=0, params=params, **serve_kw)
+    check(torch.equal(again.tokens, r.tokens),
+          f"{phase}: same-seed serves emitted different tokens")
+    return r, again, peak
+
+
+def _serve_times(r, again, serve_kw):
+    B, P, G = serve_kw["batch"], serve_kw["prompt_len"], serve_kw["gen"]
+    return {"prefill_ms": r.prefill_s * 1e3,
+            "prefill_tok_s": B * P / r.prefill_s,
+            "decode_ms_per_step": r.decode_s * 1e3 / (G - 1),
+            "decode_tok_s": B * (G - 1) / r.decode_s,
+            "rerun_prefill_ms": again.prefill_s * 1e3,
+            "rerun_decode_ms_per_step": again.decode_s * 1e3 / (G - 1),
+            "identical_tokens": True,
+            "identical_logits": bool(torch.equal(again.logits, r.logits)),
+            "sample_tokens": r.tokens[0, :16].tolist()}
+
+
+def _nbytes(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(_nbytes(v) for v in tree.values())
+
+
+def _serve_parity(out, cfg32, serve_kw, grad_batch):
+    """``serve`` on the card against the CPU in f32 and bf16 from weights
+    drawn once in f32 (seed 3; bf16: rounded), within PARITY_TOL
+    (``parity_record``), and the loss and every leaf's gradient on
+    ``grad_batch`` (``_grad_parity``); no kernel launches. Fills
+    ``out[dtype]``."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    t0 = time.monotonic()
+    p32 = api.init(cfg32, torch.Generator().manual_seed(3),
+                   torch.device("cpu"))
+    out["cpu_init_s"] = time.monotonic() - t0
+    g32 = None
+    for dtype in ("float32", "bfloat16"):
+        cfg = cfg32.replace(dtype=dtype)
+        params = {k: v.to(getattr(torch, dtype)) for k, v in p32.items()}
+        t0 = time.monotonic()
+        cpu = serve(cfg, device="cpu", params=params, **serve_kw)
+        cpu_s = time.monotonic() - t0
+        reset_counts()
+        card = serve(cfg, device="cuda",
+                     params={k: v.to(dev) for k, v in params.items()},
+                     **serve_kw)
+        _expect(f"{out['phase']} parity {dtype}", read_counts(),
+                _trust_launches(0, 0))
+        rec = parity_record(cpu, card, dtype, serve_kw["gen"])
+        rec["cpu_serve_s"] = cpu_s
+        rec["grads"], g = _grad_parity(cfg, params, grad_batch, g32)
+        out[dtype] = rec
+        g32 = g
+        del params, cpu, card
+        _release()
+    del p32, g32
+    _release()
+
+
+def phase_mla_serve(name):
+    """minicpm3-4b. Card against CPU at full width cut to 2 layers
+    (``MLA_PARITY``, ``_serve_parity``): prefill logits, absorbed-decode
+    logits and greedy tokens within PARITY_TOL; the loss and every leaf's
+    gradient at batch 1, seq 256 within ZGRAD_TOL. Then the full size
+    (bf16, seeded weights) serving ``MLA_SERVE`` twice with the same
+    tokens: prefill ms, decode ms a step against the floor (the weights a
+    step reads, all but the embedding's unused rows, and the whole latent
+    cache, over the card's memory rate), the cache's bytes a token against
+    expanded K/V, peak memory, and four decode steps under torch.profiler
+    (device activity). No kernel launches anywhere."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    before, held = _held_after_release()
+    out = {"phase": "mla_serve", "arch": MLA, "cuts": MLA_CUTS,
+           "parity": MLA_PARITY, "grad": MLA_GRAD, "serve": MLA_SERVE,
+           "tol": PARITY_TOL, "grad_tol": ZGRAD_TOL,
+           "memory_before_release": before, "memory_held_at_start": held}
+    t0 = time.monotonic()
+    cfg32 = get_config(MLA).replace(dtype="float32", **MLA_CUTS)
+    data = synthetic_tokens(1, MLA_GRAD["batch"], MLA_GRAD["seq"],
+                            cfg32.vocab_size, seed=MLA_GRAD["seed"])
+    _serve_parity(out, cfg32, MLA_PARITY,
+                  {k: torch.from_numpy(v[0]) for k, v in data.items()})
+    out["parity_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    cfg = get_config(MLA)
+    B, P, G = MLA_SERVE["batch"], MLA_SERVE["prompt_len"], MLA_SERVE["gen"]
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    r, again, peak = _serve_twice(cfg, params, MLA_SERVE, "mla_serve")
+    out["full"] = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                   "dtype": cfg.dtype, "max_memory_allocated": peak,
+                   **_serve_times(r, again, MLA_SERVE)}
+    del r, again
+    out["serve_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1)
+                            ).to(dev)
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, cfg, {"tokens": prompts}, P + G)
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+        api.decode_step(params, cfg, cache, tok, P)           # warm
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        t1 = time.monotonic()
+        for i in range(4):
+            api.decode_step(params, cfg, cache, tok, P + 1 + i)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t1
+        prof.stop()
+    dec = device_profile(prof, wall, ours=("gemm", "nvjet", "xmma"),
+                         label="gemm_s")
+    dec["device_activities_per_step"] = dec["activities"] / 4
+    out["full"]["decode_profile_4_steps"] = dec
+    out["profile_s"] = time.monotonic() - t0
+    nbytes = {k: _nbytes(v) for k, v in params.items()}
+    # a decode step reads every weight once, of the embedding only the B
+    # rows it looks up, and the whole latent cache (every slot's score)
+    weights = (sum(nbytes.values()) - nbytes["embed"]
+               + B * cfg.d_model * params["embed"].element_size())
+    cache_bytes = _nbytes(cache)
+    m = cfg.mla
+    el = params["embed"].element_size()
+    bw, _ = peaks(name)
+    floor_ms = (weights + cache_bytes) / bw * 1e3
+    out["full"].update({
+        "param_count": api.param_count(params),
+        "param_bytes": sum(nbytes.values()),
+        "weight_bytes_per_decode_step": weights,
+        "latent_cache_bytes": cache_bytes,
+        "cache_bytes_per_token": cfg.num_layers * (m.kv_lora_rank
+                                                   + m.qk_rope_head_dim) * el,
+        "expanded_kv_bytes_per_token": cfg.num_layers * cfg.num_heads * (
+            m.qk_nope_head_dim + m.qk_rope_head_dim + m.v_head_dim) * el,
+        "decode_floor_ms_per_step": floor_ms,
+        "decode_over_floor": out["full"]["decode_ms_per_step"] / floor_ms})
+    del params, cache, logits, prof
+    _release()
+    emit(out)
+
+
+def phase_mla_round(name):
+    """minicpm3-4b at full width cut to 2 layers (D = 501,406,208)
+    federated on the card (``_k4_round`` with no kernel to launch): 3 sync
+    rounds at W = 4 and async rounds at the W the memory reckoning allows,
+    each with a falling held-out loss, a bitwise same-seed rerun, the
+    deterministic-algorithms probe and a profiled worker step."""
+    return _k4_round("mla_round", MLA, MLA_CUTS, lambda cfg: {
+        "d_model": cfg.d_model, "heads": cfg.num_heads,
+        "kv_lora_rank": cfg.mla.kv_lora_rank}, kernels=(),
+        ours=("gemm", "nvjet", "xmma"), label="gemm_s")
+
+
+def _whisper_frames(n, cfg, seed):
+    """(n, encoder_seq, d) f32 frames, normal, from a numpy generator."""
+    return np.random.default_rng(seed).standard_normal(
+        (n, cfg.encoder_seq, cfg.d_model), dtype=np.float32)
+
+
+def phase_whisper_serve(name):
+    """whisper-base. Card against CPU at full size (``WHISPER_PARITY``: 1500
+    frames, a 64-token prompt, 4 greedy tokens; ``_serve_parity``): logits
+    and tokens within PARITY_TOL; the loss and every leaf's gradient at
+    batch 1, 64 tokens and 1500 frames within ZGRAD_TOL. Then the full size
+    (bf16, seeded weights and frames) serving ``WHISPER_SERVE`` twice with
+    the same tokens: prefill ms, decode ms a step against the floor (the
+    decoder's weights, the tied head and both caches read once a step, over
+    the card's memory rate), peak memory. No kernel launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    before, held = _held_after_release()
+    out = {"phase": "whisper_serve", "arch": WHISPER,
+           "parity": WHISPER_PARITY, "grad": WHISPER_GRAD,
+           "serve": WHISPER_SERVE, "tol": PARITY_TOL, "grad_tol": ZGRAD_TOL,
+           "memory_before_release": before, "memory_held_at_start": held}
+    t0 = time.monotonic()
+    cfg32 = get_config(WHISPER).replace(dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(WHISPER_GRAD["seed"])
+                            .integers(0, cfg32.vocab_size,
+                                      (WHISPER_GRAD["batch"],
+                                       WHISPER_GRAD["seq"])))
+    _serve_parity(out, cfg32, WHISPER_PARITY, {
+        "tokens": toks, "labels": toks, "frames": torch.from_numpy(
+            _whisper_frames(WHISPER_GRAD["batch"], cfg32,
+                            WHISPER_GRAD["seed"]))})
+    out["parity_s"] = time.monotonic() - t0
+    cfg = get_config(WHISPER)
+    B, P, G = WHISPER_SERVE["batch"], WHISPER_SERVE["prompt_len"], \
+        WHISPER_SERVE["gen"]
+    check(P + G <= 448, "whisper serves at most 448 tokens")
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    r, again, peak = _serve_twice(cfg, params, WHISPER_SERVE,
+                                  "whisper_serve")
+    nbytes = {k: _nbytes(v) for k, v in params.items()}
+    # a decode step reads the decoder's weights, the whole tied head (the
+    # embedding) and both caches: self K/V at every slot, cross K/V
+    dec_w = sum(n for k, n in nbytes.items() if k.startswith("dec"))
+    cache = _nbytes(api.make_cache(cfg, B, P + G, torch.device("meta")))
+    bw, _ = peaks(name)
+    floor_ms = (dec_w + nbytes["embed"] + cache) / bw * 1e3
+    out["full"] = {
+        "encoder_layers": cfg.encoder_layers, "layers": cfg.num_layers,
+        "frames": cfg.encoder_seq, "d_model": cfg.d_model,
+        "dtype": cfg.dtype, "param_count": api.param_count(params),
+        "decoder_weight_bytes": dec_w, "head_bytes": nbytes["embed"],
+        "cache_bytes": cache, "max_memory_allocated": peak,
+        **_serve_times(r, again, WHISPER_SERVE),
+        "decode_floor_ms_per_step": floor_ms}
+    out["full"]["decode_over_floor"] = \
+        out["full"]["decode_ms_per_step"] / floor_ms
+    del r, again, params
+    _release()
+    emit(out)
+
+
+def phase_whisper_round(name):
+    """whisper-base at full size (D = 71,426,560) federated on the card
+    through ``SDFLBProtocol`` (AdamW, remat, no chain), batches with
+    frames: 3 sync rounds at W = 8 and 3 async rounds, each with a falling
+    held-out loss and no kernel launch (``_round_run``), and a same-seed
+    one-round rerun with bitwise-equal global params and scores; one
+    worker's step under the deterministic-algorithms probe and, warm,
+    under torch.profiler (device activity)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    cfg = get_config(WHISPER)
+    W, B, S = WROUND["workers"], WROUND["batch"], WROUND["seq"]
+    rng = np.random.default_rng(ZROUND_FRESH_SEED)
+    fresh = {"tokens": rng.integers(0, cfg.vocab_size, (B, S)
+                                    ).astype(np.int32)}
+    fresh["labels"] = fresh["tokens"].copy()
+    fresh["frames"] = _whisper_frames(B, cfg, ZROUND_FRESH_SEED)
+
+    def frames(r):
+        return _whisper_frames(W * B, cfg, WROUND_FRAMES_SEED + r).reshape(
+            W, B, cfg.encoder_seq, cfg.d_model)
+
+    before, held = _held_after_release()
+    out = {"phase": "whisper_round", "arch": WHISPER, **WROUND,
+           "frames": cfg.encoder_seq, "dtype": cfg.dtype, "chain": False,
+           "memory_before_release": before, "memory_held_at_start": held}
+    kw = dict(kernels=(), phase="whisper_round", shape=WROUND, frames=frames)
+    proto, out["sync"], (p1, s1) = _round_run(cfg, fresh, W, False,
+                                              WROUND["rounds"], **kw)
+    D = api.param_count(proto.global_params)
+    out["D"] = D
+    step = _worker_step(cfg, proto.global_params, {
+        k: torch.from_numpy(v).to(dev) for k, v in fresh.items()})
+    del proto
+    flagged, cublas = _deterministic_probe(step)
+    out["nondeterministic_ops_flagged"] = flagged
+    out["cublas_notes"] = cublas
+    check(not flagged, f"whisper_round: nondeterministic ops {flagged}")
+    out["worker_step_profile"] = _device_step_profile(
+        step, ("gemm", "nvjet", "xmma"), "gemm_s")
+    del step
+    _release()
+    again, rerun, (p2, s2) = _round_run(cfg, fresh, W, False, 1, **kw)
+    identical = all(torch.equal(p1[k], p2[k]) for k in p1) and \
+        np.array_equal(s1, s2)
+    check(identical, "whisper_round: same-seed rounds differ")
+    out["rerun"] = {"identical_params_and_scores": identical,
+                    "round_wall_s": rerun["round_wall_s"]}
+    del again, p1, p2
+    _release()
+    proto, out["async"], _ = _round_run(cfg, fresh, W, True,
+                                        WROUND["rounds"], **kw)
+    del proto
+    _release()
+    emit(out)
+
+
 def _timed(walls, phase, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``walls[phase]``."""
     t0 = time.monotonic()
@@ -4019,6 +4465,10 @@ def main():
                        name)
     run("xlstm_grad_parity", phase_xlstm_grad_parity)
     xround_counts = run("xlstm_round", phase_xlstm_round, name)
+    run("mla_serve", phase_mla_serve, name)
+    run("mla_round", phase_mla_round, name)
+    run("whisper_serve", phase_whisper_serve, name)
+    run("whisper_round", phase_whisper_round, name)
     for counts in new_paths:
         for k in ("trust_score", "trust_agg", "fused_async_agg"):
             launches[k] += counts[k]

@@ -1,7 +1,7 @@
 """Serving driver of the port: batched prefill + decode with the model's
-decode cache (stacked per-layer KV, zamba2's Mamba2 states and shared
-K/V, or xLSTM's mLSTM and sLSTM states), on the card unless asked for the
-CPU.
+decode cache (stacked per-layer KV, MLA's latent, zamba2's Mamba2 states
+and shared K/V, xLSTM's mLSTM and sLSTM states, or whisper's self and
+cross K/V), on the card unless asked for the CPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch h2o-danube-1.8b --batch 4 --prompt-len 64 --gen 32 --device cpu
@@ -9,11 +9,15 @@ CPU.
         --arch zamba2-7b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch xlstm-1.3b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-base --device cpu
 
 The flags and printed lines are those of ``repro.launch.serve``; without
 ``--full`` it runs the arch's smoke config. Weights and prompts come from
-``--seed``: weights from a generator on the run's device, prompts from a
-CPU generator (so every device serves the same prompts). ``serve(cfg, ...)``
+``--seed``: weights from a generator on the run's device, prompts (and the
+audio family's frames, normal (B, encoder_seq, d) in ``cfg.dtype``, the
+stub frontend's output) from CPU generators (so every device serves the
+same inputs). ``serve(cfg, ...)``
 is the same run as a function, for callers that want the tokens, logits and
 timings. Greedy decoding (``temperature <= 0``) is deterministic; sampling
 draws from a seeded generator on the run's device.
@@ -70,6 +74,12 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
         prompts = torch.randint(
             0, cfg.vocab_size, (batch, prompt_len),
             generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+        inputs = {"tokens": prompts}
+        if cfg.family == "audio":
+            inputs["frames"] = torch.randn(
+                (batch, cfg.encoder_seq, cfg.d_model),
+                generator=torch.Generator().manual_seed(seed + 3)
+            ).to(device=dev, dtype=getattr(torch, cfg.dtype))
         sampler = torch.Generator(dev).manual_seed(seed + 10)
 
         def sample(lg):
@@ -82,8 +92,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
         cache_len = prompt_len + gen
         _sync(dev)
         t0 = time.monotonic()
-        logits, cache = api.prefill(params, cfg, {"tokens": prompts},
-                                    cache_len)
+        logits, cache = api.prefill(params, cfg, inputs, cache_len)
         _sync(dev)
         prefill_s = time.monotonic() - t0
 

@@ -4,11 +4,14 @@ Two modes:
   * ``--arch paper-net`` — the paper's own experiment: MNIST-surrogate CNN,
     SGD(lr=0.01, momentum=0.5), N workers in clusters, blockchain on/off.
   * an LLM arch (the dense ``smollm-135m``, ``yi-6b``, ``h2o-danube-1.8b``,
-    the MoE ``qwen2-moe-a2.7b``, ``olmoe-1b-7b``, the hybrid ``zamba2-7b``
-    or xLSTM's ``xlstm-1.3b``) — federated LM training on synthetic
-    token streams, the smoke-size variant by default, the full config with
+    ``minicpm3-4b`` (MLA), the MoE ``qwen2-moe-a2.7b``, ``olmoe-1b-7b``,
+    the hybrid ``zamba2-7b`` or xLSTM's ``xlstm-1.3b``) — federated LM
+    training on synthetic token streams, the smoke-size variant by default, the full config with
     ``--full`` (which also turns on rematerialisation per layer, or per
     super-layer for the hybrid and xLSTM, as the reference does).
+    whisper-base is not among them, as in the reference, whose token
+    streams carry no frames; ``SDFLBProtocol`` federates it given batches
+    with ``frames``.
 
 It runs on the card unless ``--device cpu`` is given. The flags and the
 printed lines are the reference's, plus ``--device``; ``run(args)`` is the

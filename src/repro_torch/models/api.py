@@ -1,14 +1,17 @@
-"""Model API of the port — the CNN, dense- and MoE-decoder, hybrid and
-xLSTM (``ssm``) branches of ``repro.models.api``.
+"""Model API of the port — the CNN, dense- and MoE-decoder (GQA or MLA
+attention), hybrid, xLSTM (``ssm``) and encoder-decoder (``audio``)
+branches of ``repro.models.api``.
 
     init(cfg, gen, device)                     -> params (flat dict)
     loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)
                                                   [cnn, dense, moe, hybrid,
-                                                   ssm]
+                                                   ssm, audio]
     lm_loss_fn(cfg)(params, batch)             -> (loss, metrics)
-                                                  [dense, moe, hybrid, ssm]
+                                                  [dense, moe, hybrid, ssm,
+                                                   audio]
     forward(params, cfg, batch)                -> (logits, aux)
-                                                  [dense, moe, hybrid, ssm]
+                                                  [dense, moe, hybrid, ssm,
+                                                   audio]
     prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
     cache_shape(cfg, batch, seq), make_cache(cfg, batch, seq, device)
     decode_step(params, cfg, cache, tokens, cur_index) -> (logits, cache)
@@ -16,11 +19,13 @@ xLSTM (``ssm``) branches of ``repro.models.api``.
 CNN batches are dicts ``{images (W, B, 28, 28, 1), labels (W, B)}`` with
 the worker dimension first; a single model is the W = 1 case (``stack``).
 Decoder batches are ``{tokens (B, S)}`` (``{tokens, labels}``, each
-(W, B, S), for ``loss_fn``). The dense and MoE families run through
-``transformer`` (the MoE layers through ``moe``, whose aux loss the LM
-loss adds and reports), the hybrid (zamba2) through ``hybrid``, xLSTM
-(the ``ssm`` family) through ``xlstm``; the other LLM families wait for
-their slices (``transformer.check_ported`` raises). The hybrid trains
+(W, B, S), for ``loss_fn``); the audio family's also carry ``frames``
+(B, encoder_seq, d), the stub frontend's embeddings ((W, B, Se, d) for
+``loss_fn``). The dense and MoE families run through ``transformer`` (the
+MoE layers through ``moe``, whose aux loss the LM loss adds and reports),
+the hybrid (zamba2) through ``hybrid``, xLSTM (the ``ssm`` family) through
+``xlstm``, whisper (``audio``) through ``encdec``; the VLM family waits
+for its slice (``transformer.check_ported`` raises). The hybrid trains
 through K4 and its backward (``kernels.ssd_scan``), xLSTM through K4's
 wide path and its backward and the sLSTM scan's VJP (``ssm._SLSTMScan``).
 """
@@ -34,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import cnn as CNN
+from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as TF
 from repro_torch.models import xlstm as XL
@@ -49,6 +55,8 @@ def init(cfg: ModelConfig, gen: torch.Generator,
         return HY.init_hybrid(gen, cfg, device)
     if cfg.family == "ssm":
         return XL.init_xlstm(gen, cfg, device)
+    if cfg.family == "audio":
+        return ED.init_encdec(gen, cfg, device)
     return TF.init_decoder(gen, cfg, device)
 
 
@@ -58,6 +66,9 @@ def forward(params: Params, cfg: ModelConfig, batch):
         return HY.hybrid_forward(params, cfg, batch["tokens"])
     if cfg.family == "ssm":
         return XL.xlstm_forward(params, cfg, batch["tokens"])
+    if cfg.family == "audio":
+        return ED.encdec_forward(params, cfg, batch["tokens"],
+                                 frames=batch["frames"])
     return TF.decoder_forward(params, cfg, batch["tokens"])
 
 
@@ -71,6 +82,10 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache_len: int):
     if cfg.family == "ssm":
         return XL.xlstm_forward(params, cfg, batch["tokens"],
                                 prefill_cache_len=cache_len)
+    if cfg.family == "audio":
+        return ED.encdec_forward(params, cfg, batch["tokens"],
+                                 frames=batch["frames"],
+                                 prefill_cache_len=cache_len)
     return TF.decoder_forward(params, cfg, batch["tokens"],
                               prefill_cache_len=cache_len)
 
@@ -80,6 +95,8 @@ def cache_shape(cfg: ModelConfig, batch: int, seq: int):
         return HY.hybrid_cache_shape(cfg, batch, seq)
     if cfg.family == "ssm":
         return XL.xlstm_cache_shape(cfg, batch, seq)
+    if cfg.family == "audio":
+        return ED.encdec_cache_shape(cfg, batch, seq)
     return TF.decoder_cache_shape(cfg, batch, seq)
 
 
@@ -91,6 +108,8 @@ def make_cache(cfg: ModelConfig, batch: int, seq: int, device):
         return HY.make_hybrid_cache(cfg, batch, seq, device)
     if cfg.family == "ssm":
         return XL.make_xlstm_cache(cfg, batch, device)
+    if cfg.family == "audio":
+        return ED.make_encdec_cache(cfg, batch, seq, device)
     return TF.make_decoder_cache(cfg, batch, seq, device)
 
 
@@ -100,6 +119,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache,
         return HY.hybrid_decode_step(params, cfg, cache, tokens, cur_index)
     if cfg.family == "ssm":
         return XL.xlstm_decode_step(params, cfg, cache, tokens, cur_index)
+    if cfg.family == "audio":
+        return ED.encdec_decode_step(params, cfg, cache, tokens, cur_index)
     return TF.decoder_decode_step(params, cfg, cache, tokens, cur_index)
 
 
@@ -180,13 +201,14 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
                kv_chunk: int = 1024):
     """One decoder's causal-LM loss, the LM branch of the reference's
     ``loss_fn``: f(params, {tokens (B, S), labels (B, S)}) -> (loss (),
-    {"loss", "aux"}), for the dense and MoE decoders, the hybrid and xLSTM
-    (the last two: head ``lm_head``, offset 0). ``aux`` is the MoE layers'
-    load-balance and z-loss, summed over the layers (0 for the other
-    families)."""
+    {"loss", "aux"}), for the dense and MoE decoders, the hybrid, xLSTM
+    (the last two: head ``lm_head``, offset 0) and whisper (``frames`` in
+    the batch too; the tied head ``embed.T``, offset 0). ``aux`` is the MoE
+    layers' load-balance and z-loss, summed over the layers (0 for the
+    other families)."""
     lm_head_forward = {"hybrid": HY.hybrid_forward,
                        "ssm": XL.xlstm_forward}.get(cfg.family)
-    if lm_head_forward is None:
+    if lm_head_forward is None and cfg.family != "audio":
         TF.check_ported(cfg)
 
     def f(params: Params, batch: Dict[str, torch.Tensor]):
@@ -194,6 +216,10 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
         if lm_head_forward is not None:
             x, aux = lm_head_forward(params, cfg, batch["tokens"], **kw)
             head = params["lm_head"]
+        elif cfg.family == "audio":
+            x, aux = ED.encdec_forward(params, cfg, batch["tokens"],
+                                       frames=batch["frames"], **kw)
+            head = params["embed"].T
         else:
             x, aux = TF.decoder_forward(params, cfg, batch["tokens"], **kw)
             head = (params["embed"].T if cfg.tie_embeddings
@@ -210,10 +236,11 @@ def loss_fn(cfg: ModelConfig, *, remat: bool = False, kv_chunk: int = 1024):
     """Returns f(params_w, batch, mask=None) -> (loss (W,), metrics), every
     worker's loss on its own batch. CNN: ``mask`` is the conv2 dropout keep
     mask (``cnn.dropout_mask``); None evaluates without dropout; metrics
-    {"loss", "accuracy"}. Dense and MoE decoders, the hybrid and xLSTM:
-    batch leaves (W, B, S), workers one after another through
-    ``lm_loss_fn`` (``remat``, ``kv_chunk``), no dropout; metrics {"loss",
-    "aux"}, each (W,)."""
+    {"loss", "accuracy"}. Dense and MoE decoders, the hybrid, xLSTM and
+    whisper: batch leaves (W, B, S) (whisper's ``frames`` (W, B, Se, d)),
+    each worker's slice of every leaf through ``lm_loss_fn`` in turn
+    (``remat``, ``kv_chunk``), no dropout; metrics {"loss", "aux"}, each
+    (W,)."""
     if cfg.family == "cnn":
         def f_cnn(params_w: Params, batch: Dict[str, torch.Tensor],
                   mask: Optional[torch.Tensor] = None):

@@ -1,5 +1,8 @@
-"""Model-zoo building blocks of the port: the GQA attention and SwiGLU MLP
-subset of ``repro.models.layers`` that the dense decoders use.
+"""Model-zoo building blocks of the port, the twin of
+``repro.models.layers``: RMSNorm and LayerNorm, RoPE, the attention cores,
+GQA attention (causal or not, or cross-attention over encoder states),
+Multi-head Latent Attention (MLA) with its absorbed decode, and the SwiGLU
+and GELU MLPs.
 
 Plain functions over dicts of tensors, in the reference's layouts:
 weights are (in, out) and multiply as ``x @ W``; activations are
@@ -77,6 +80,15 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     xf = x.float()
     r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
     return (xf * r * weight).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm in f32, returned in ``x.dtype``."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * weight + bias).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -238,14 +250,19 @@ def init_gqa(gen: torch.Generator, d_model: int, num_heads: int,
 
 def apply_gqa(params: Params, x: torch.Tensor, *, num_heads: int,
               num_kv_heads: int, head_dim: int, positions: torch.Tensor,
-              rope_theta: float, window: int = 0, kv_chunk: int = 1024,
-              cache: Optional[Params] = None,
-              cur_index: Optional[int] = None):
-    """Causal self-attention. x: (B, S, d). Returns (out, kv).
+              rope_theta: float, causal: bool = True, window: int = 0,
+              kv_chunk: int = 1024, cache: Optional[Params] = None,
+              cur_index: Optional[int] = None,
+              cross_kv: Optional[torch.Tensor] = None):
+    """Self-attention (causal unless ``causal=False``), or cross-attention
+    over ``cross_kv``, encoder states (B, Se, d) that k and v are projected
+    from (whisper's decoder; neither q nor k gets RoPE there, and every
+    query sees all Se keys). x: (B, S, d). Returns (out, kv).
 
     Full sequence (no ``cache``): blocked attention over ``kv_chunk``-slot
-    KV chunks; ``kv`` holds the projected k and v, (B, S, KV, hd) each, for
-    the caller to put into a decode cache.
+    KV chunks; ``kv`` holds the projected k and v, (B, S, KV, hd) each, or
+    (B, Se, KV, hd) for cross-attention, for the caller to put into a
+    decode cache.
 
     Decode (``cache`` given, S == 1): writes this token's k/v into slot
     ``cur_index`` of the cache IN PLACE (the reference's
@@ -254,10 +271,19 @@ def apply_gqa(params: Params, x: torch.Tensor, *, num_heads: int,
     ``window > 0`` the attention is the K5 kernel."""
     B, S, _ = x.shape
     q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
-    k = (x @ params["wk"]).reshape(B, S, num_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(B, S, num_kv_heads, head_dim)
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
+    if cross_kv is None:
+        k = (x @ params["wk"]).reshape(B, S, num_kv_heads, head_dim)
+        v = (x @ params["wv"]).reshape(B, S, num_kv_heads, head_dim)
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    else:
+        Se = cross_kv.shape[1]
+        k = (cross_kv @ params["wk"]).reshape(B, Se, num_kv_heads, head_dim)
+        v = (cross_kv @ params["wv"]).reshape(B, Se, num_kv_heads, head_dim)
+        o = blocked_attention(q, k, v, q_positions=positions,
+                              kv_positions=torch.arange(Se, device=x.device),
+                              causal=False, kv_chunk=kv_chunk)
+        return o.reshape(B, S, -1) @ params["wo"], {"k": k, "v": v}
 
     if cache is not None:
         k_cache, v_cache = cache["k"], cache["v"]
@@ -271,7 +297,7 @@ def apply_gqa(params: Params, x: torch.Tensor, *, num_heads: int,
         return o.reshape(B, S, -1) @ params["wo"], cache
 
     o = blocked_attention(q, k, v, q_positions=positions,
-                          kv_positions=positions, causal=True,
+                          kv_positions=positions, causal=causal,
                           window=window, kv_chunk=kv_chunk)
     return o.reshape(B, S, -1) @ params["wo"], {"k": k, "v": v}
 
@@ -282,7 +308,103 @@ def gqa_cache_shape(batch: int, seq: int, num_kv_heads: int, head_dim: int):
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLA attention (minicpm3 / DeepSeek-style latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, d_model: int, num_heads: int, mla, dtype,
+             device) -> Params:
+    qk_hd = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    rank, q_rank = mla.kv_lora_rank, mla.q_lora_rank
+    hv = num_heads * mla.v_head_dim
+    return {
+        "wq_a": dense_init(gen, (d_model, q_rank), d_model, dtype, device),
+        "q_a_norm": torch.ones((q_rank,), dtype=dtype, device=device),
+        "wq_b": dense_init(gen, (q_rank, num_heads * qk_hd), q_rank, dtype,
+                           device),
+        "wkv_a": dense_init(gen, (d_model, rank + mla.qk_rope_head_dim),
+                            d_model, dtype, device),
+        "kv_a_norm": torch.ones((rank,), dtype=dtype, device=device),
+        "wkv_b": dense_init(gen, (rank, num_heads * (mla.qk_nope_head_dim
+                                                     + mla.v_head_dim)),
+                            rank, dtype, device),
+        "wo": dense_init(gen, (hv, d_model), hv, dtype, device),
+    }
+
+
+def apply_mla(params: Params, x: torch.Tensor, *, num_heads: int, mla,
+              positions: torch.Tensor, rope_theta: float,
+              kv_chunk: int = 1024, cache: Optional[Params] = None,
+              cur_index: Optional[int] = None):
+    """MLA: queries through a low-rank bottleneck, keys and values through
+    a compressed latent (``kv_lora_rank``) plus one RoPE key shared by
+    every head. x: (B, S, d). Returns (out, cache entry).
+
+    Full sequence (no ``cache``): k = [the latent's per-head nope keys, the
+    RoPE key broadcast over the heads], v padded from ``v_head_dim`` to the
+    q/k head dim for ``blocked_attention`` (scale 1/√qk_hd) and sliced
+    back; the entry is {"latent": (B, S, kv_lora_rank + rope_dim)}, the
+    normed latent and the roped key, for the decode cache.
+
+    Decode (``cache`` given, S == 1): the absorbed form, attention in the
+    latent space without expanding the cache to per-head K/V. This token's
+    entry is written into slot ``cur_index`` of ``cache["latent"]`` IN
+    PLACE; q̃_h = W_k(h)ᵀ q_nope_h, score_i = q̃·latent_i + q_rope·k_rope_i,
+    out_h = W_v(h) (p · latent), rounded where the reference rounds: q·scale,
+    q̃, p and the context to the cache dtype, the scores and the softmax in
+    f32, the output to x's dtype. Both RMSNorms take eps 1e-5."""
+    B, S, _ = x.shape
+    nope, rd, vd = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.v_head_dim
+    rank = mla.kv_lora_rank
+    qk_hd = nope + rd
+
+    q = rms_norm(x @ params["wq_a"], params["q_a_norm"])
+    q = (q @ params["wq_b"]).reshape(B, S, num_heads, qk_hd)
+    q = torch.cat([q[..., :nope],
+                   apply_rope(q[..., nope:], positions, rope_theta)], dim=-1)
+
+    kv_a = x @ params["wkv_a"]                                # (B,S,rank+rd)
+    latent = rms_norm(kv_a[..., :rank], params["kv_a_norm"])
+    k_rope = apply_rope(kv_a[..., None, rank:], positions,
+                        rope_theta)                           # (B,S,1,rd)
+
+    if cache is not None:
+        lat_cache = cache["latent"]
+        lat_dt = lat_cache.dtype
+        lat_cache[:, cur_index, :rank] = latent[:, 0].to(lat_dt)
+        lat_cache[:, cur_index, rank:] = k_rope[:, 0, 0].to(lat_dt)
+        latent_all = lat_cache[..., :rank].float()            # (B,Sc,r)
+        k_rope_all = lat_cache[..., rank:].float()            # (B,Sc,rd)
+        wkv = params["wkv_b"].reshape(rank, num_heads, nope + vd)
+        w_k = wkv[..., :nope].to(lat_dt).float()
+        w_v = wkv[..., nope:].to(lat_dt).float()
+        qh = (q[:, 0] * (1.0 / math.sqrt(qk_hd))).to(lat_dt).float()
+        q_til = torch.einsum("bhn,rhn->bhr", qh[..., :nope], w_k
+                             ).to(lat_dt).float()
+        s = (torch.einsum("bhr,bsr->bhs", q_til, latent_all)
+             + torch.einsum("bhd,bsd->bhs", qh[..., nope:], k_rope_all))
+        pos = torch.arange(lat_cache.shape[1], device=x.device)
+        s = s.masked_fill(pos > cur_index, NEG_INF)
+        p = torch.softmax(s, dim=-1).to(lat_dt).float()
+        ctx = torch.einsum("bhs,bsr->bhr", p, latent_all).to(lat_dt).float()
+        o = torch.einsum("bhr,rhv->bhv", ctx, w_v).to(x.dtype)
+        return o.reshape(B, S, -1) @ params["wo"], cache
+
+    kv = (latent @ params["wkv_b"]).reshape(B, S, num_heads, nope + vd)
+    k = torch.cat([kv[..., :nope],
+                   k_rope.expand(B, S, num_heads, rd)], dim=-1)
+    o = blocked_attention(q, k, F.pad(kv[..., nope:], (0, qk_hd - vd)),
+                          q_positions=positions, kv_positions=positions,
+                          causal=True, kv_chunk=kv_chunk)[..., :vd]
+    entry = torch.cat([latent, k_rope[:, :, 0]], dim=-1)
+    return o.reshape(B, S, -1) @ params["wo"], {"latent": entry}
+
+
+def mla_cache_shape(batch: int, seq: int, mla):
+    return {"latent": (batch, seq, mla.kv_lora_rank + mla.qk_rope_head_dim)}
+
+
+# ---------------------------------------------------------------------------
+# MLPs
 # ---------------------------------------------------------------------------
 
 def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
@@ -297,3 +419,26 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int, dtype,
 def apply_swiglu(params: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ params["w_gate"]) * (x @ params["w_up"])) \
         @ params["w_down"]
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype,
+                  device) -> Params:
+    return {
+        "w_in": dense_init(gen, (d_model, d_ff), d_model, dtype, device),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=device),
+        "w_out": dense_init(gen, (d_ff, d_model), d_ff, dtype, device),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=device),
+    }
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation, in f32 (tanh
+    through ``mathfn``), returned in ``x.dtype``."""
+    xf = x.float()
+    inner = math.sqrt(2.0 / math.pi) * (xf + 0.044715 * xf * xf * xf)
+    return (xf * (0.5 * (1.0 + mathfn.tanh(inner)))).to(x.dtype)
+
+
+def apply_gelu_mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
+    return gelu(x @ params["w_in"] + params["b_in"]) @ params["w_out"] \
+        + params["b_out"]

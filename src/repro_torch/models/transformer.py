@@ -14,11 +14,14 @@ scanned body; a checkpointed layer returns its MoE aux loss beside x. The
 MoE layers (``models/moe.py``) replace the SwiGLU MLP under ``moe.``
 (``layers.moe.w_gate`` is (L, E, d, f), ``layers.moe.shared.gate``
 (L, d, 1)); the aux loss is summed over the layers in f32, in layer
-order. The VLM family and MLA attention wait for their slices.
+order. MLA attention (``attn_type == "mla"``, minicpm3-4b) replaces the
+GQA leaves under ``attn.`` (``layers.attn.wq_a`` … ``layers.attn.wo``).
+The VLM family waits for its slice.
 
-The decode cache is a dict of two stacked (L, B, S, KV, hd) tensors, written
-in place: ``decoder_decode_step`` fills slot ``cur_index`` of each layer and
-returns the same tensors.
+The decode cache is a dict of stacked tensors in ``cfg.dtype``, written in
+place: ``decoder_decode_step`` fills slot ``cur_index`` of each layer and
+returns the same tensors. GQA keeps two, (L, B, S, KV, hd) ``k`` and
+``v``; MLA one, (L, B, S, kv_lora_rank + rope_dim) ``latent``.
 """
 from __future__ import annotations
 
@@ -41,13 +44,12 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_ported(cfg: ModelConfig) -> None:
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            "family 'vlm' is not ported yet (the decoder stack runs the "
+            "dense and moe families)")
     if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (the port runs the "
-            f"dense, moe and hybrid families)")
-    if cfg.attn_type not in ("gqa", "swa"):
-        raise NotImplementedError(
-            f"attn_type {cfg.attn_type!r} is not ported yet")
+        raise ValueError(f"family {cfg.family!r} has no decoder stack")
 
 
 def _window(cfg: ModelConfig) -> int:
@@ -63,8 +65,12 @@ def init_decoder_layer(gen: torch.Generator, cfg: ModelConfig,
     """One layer's params, flat: ``attn.wq`` … ``mlp.w_down`` (or
     ``moe.router`` … ``moe.shared.gate``), norms."""
     dt = _dtype(cfg)
-    attn = L.init_gqa(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                      cfg.resolved_head_dim, dt, device)
+    if cfg.attn_type == "mla":
+        attn = L.init_mla(gen, cfg.d_model, cfg.num_heads, cfg.mla, dt,
+                          device)
+    else:
+        attn = L.init_gqa(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.resolved_head_dim, dt, device)
     if cfg.moe.enabled:
         mlp = MOE.init_moe(gen, cfg.d_model, cfg.moe, dt, device)
         group = "moe"
@@ -103,11 +109,18 @@ def all_layer_params(params: Params, cfg: ModelConfig) -> List[Dict]:
     """Every layer's params as views, {"attn": {...}, "mlp": {...},
     "norm1", "norm2"} a layer (``"moe": {..., "shared": {...}}`` in place
     of ``mlp``), from one ``unbind`` of each stacked leaf."""
-    out = [{} for _ in range(cfg.num_layers)]
+    return layer_views(params, LAYERS, cfg.num_layers)
+
+
+def layer_views(params: Params, prefix: str, n: int) -> List[Dict]:
+    """The ``n`` layers stacked under ``prefix`` as nested dicts of views
+    (``prefix + "attn.wq"`` → ``[layer]["attn"]["wq"]``), from one
+    ``unbind`` of each stacked leaf."""
+    out = [{} for _ in range(n)]
     for k, v in params.items():
-        if not k.startswith(LAYERS):
+        if not k.startswith(prefix):
             continue
-        *groups, name = k[len(LAYERS):].split(".")
+        *groups, name = k[len(prefix):].split(".")
         for lp, t in zip(out, v.unbind(0)):
             for g in groups:
                 lp = lp.setdefault(g, {})
@@ -134,13 +147,18 @@ def _block(lp, cfg: ModelConfig, x: torch.Tensor, moe_cf: float = 0.0,
            **attn_kw):
     """One decoder layer: pre-norm attention and SwiGLU (or MoE at capacity
     factor ``moe_cf``, 0 for the config's), with residuals. Returns (x,
-    the ``kv`` of ``apply_gqa``, the MoE aux loss or None)."""
+    the cache entry of ``apply_gqa`` or ``apply_mla``, the MoE aux loss or
+    None)."""
     h = L.rms_norm(x, lp["norm1"], cfg.norm_eps)
-    a, kv = L.apply_gqa(lp["attn"], h, num_heads=cfg.num_heads,
-                        num_kv_heads=cfg.num_kv_heads,
-                        head_dim=cfg.resolved_head_dim,
-                        rope_theta=cfg.rope_theta, window=_window(cfg),
-                        **attn_kw)
+    if cfg.attn_type == "mla":
+        a, kv = L.apply_mla(lp["attn"], h, num_heads=cfg.num_heads,
+                            mla=cfg.mla, rope_theta=cfg.rope_theta, **attn_kw)
+    else:
+        a, kv = L.apply_gqa(lp["attn"], h, num_heads=cfg.num_heads,
+                            num_kv_heads=cfg.num_kv_heads,
+                            head_dim=cfg.resolved_head_dim,
+                            rope_theta=cfg.rope_theta, window=_window(cfg),
+                            **attn_kw)
     x = x + a
     h = L.rms_norm(x, lp["norm2"], cfg.norm_eps)
     if cfg.moe.enabled:
@@ -164,8 +182,9 @@ def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     final-normed hidden states (B, S, d) instead of the logits (the loss
     applies the head itself, chunk by chunk). In prefill mode
     (``prefill_cache_len > 0``) returns (last_logits (B, 1, V), cache) with
-    the cache's (L, B, prefill_cache_len, KV, hd) tensors in ``cfg.dtype``
-    holding each layer's K/V in the first S slots and zeros after.
+    the cache's (L, B, prefill_cache_len, ...) tensors in ``cfg.dtype``
+    holding each layer's K/V (or MLA latent) in the first S slots and zeros
+    after.
     ``remat`` checkpoints each layer when autograd records (training)."""
     check_ported(cfg)
     x = embed_tokens(params, cfg, tokens)
@@ -186,8 +205,8 @@ def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             x, kv, aux_l = _block(lp, cfg, x, positions=positions,
                                   kv_chunk=kv_chunk)
             if prefill:
-                cache["k"][layer, :, :S] = kv["k"]
-                cache["v"][layer, :, :S] = kv["v"]
+                for name, t in kv.items():
+                    cache[name][layer, :, :S] = t
         if aux_l is not None:
             aux = aux + aux_l
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -204,8 +223,11 @@ def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 def decoder_cache_shape(cfg: ModelConfig, batch: int, seq: int):
     check_ported(cfg)
-    per = L.gqa_cache_shape(batch, seq, cfg.num_kv_heads,
-                            cfg.resolved_head_dim)
+    if cfg.attn_type == "mla":
+        per = L.mla_cache_shape(batch, seq, cfg.mla)
+    else:
+        per = L.gqa_cache_shape(batch, seq, cfg.num_kv_heads,
+                                cfg.resolved_head_dim)
     return {k: (cfg.num_layers,) + v for k, v in per.items()}
 
 
@@ -225,7 +247,7 @@ def decoder_decode_step(params: Params, cfg: ModelConfig, cache: Params,
     x = embed_tokens(params, cfg, tokens)                   # (B, 1, d)
     positions = torch.full((1,), cur_index, device=x.device)
     for layer, lp in enumerate(all_layer_params(params, cfg)):
-        layer_cache = {"k": cache["k"][layer], "v": cache["v"][layer]}
+        layer_cache = {name: t[layer] for name, t in cache.items()}
         x, _, _ = _block(lp, cfg, x, moe_cf=2 * cfg.moe.capacity_factor,
                          positions=positions, cache=layer_cache,
                          cur_index=cur_index)

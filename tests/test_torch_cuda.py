@@ -1191,3 +1191,114 @@ def test_moe_protocol_inits_and_trains_on_card(cuda):
     assert [f.launches for f in wrappers] == before
     assert np.isfinite(rec.scores).all() and np.isfinite(rec.losses).all()
     proto.finalize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_absorbed_decode_matches_cpu_on_card(cuda, dtype):
+    """MLA's absorbed decode (minicpm3-4b's smoke config, layer 0) on the
+    card against the CPU from the same weights, input and a latent cache of
+    40 slots filled at random, at cur_index 23: the output within 1e-5
+    (f32) or one bf16 step (bf16) of its largest value, the cache written
+    in place at slot 23 alone, equal on both devices. No kernel launches."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import api, layers, transformer
+    resolve_device(cuda)
+    cfg = get_smoke_config("minicpm3-4b").replace(dtype=dtype)
+    p = api.init(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    attn = transformer.all_layer_params(p, cfg)[0]["attn"]
+    rng = np.random.default_rng(3)
+    dt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((2, 1, 256)).astype(
+        np.float32)).to(dt)
+    lat = torch.from_numpy(rng.standard_normal((2, 40, 48)).astype(
+        np.float32)).to(dt)
+    kw = dict(num_heads=cfg.num_heads, mla=cfg.mla, rope_theta=cfg.rope_theta,
+              cur_index=23)
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        cache = {"latent": lat.clone().to(dev)}
+        o, new = layers.apply_mla({k: v.to(dev) for k, v in attn.items()},
+                                  x.to(dev), positions=torch.full(
+                                      (1,), 23, device=dev), cache=cache, **kw)
+        assert new["latent"] is cache["latent"]
+        outs.append((o.cpu().float(), new["latent"].cpu()))
+    (o, c), (want_o, want_c) = outs
+    rtol = 1e-5 if dtype == "float32" else 2.0 ** -8
+    assert (o - want_o).abs().max() <= rtol * want_o.abs().max()
+    moved = (c != lat).any(dim=(0, 2)).nonzero().flatten()
+    assert moved.tolist() == [23]
+    torch.testing.assert_close(c.float(), want_c.float(), rtol=0,
+                               atol=rtol * float(want_c.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_encoder_matches_cpu_on_card(cuda, dtype):
+    """whisper-base's encoder (smoke config: 2 layers over 64 frames,
+    non-causal attention with RoPE, GELU MLPs, LayerNorms) on the card
+    against the CPU from the same weights and frames, and one decode
+    step's logits over the prefill's caches: within 1e-4 (f32) or the
+    serve parity's bf16 0.125 of the CPU's."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import api, encdec
+    resolve_device(cuda)
+    cfg = get_smoke_config("whisper-base").replace(dtype=dtype)
+    p = api.init(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    rng = np.random.default_rng(5)
+    frames = torch.from_numpy(rng.standard_normal((2, 64, 256)).astype(
+        np.float32))
+    toks = torch.from_numpy(rng.integers(0, 512, (2, 9)))
+    tol = 1e-4 if dtype == "float32" else 0.125
+    got = []
+    for dev in (cuda, torch.device("cpu")):
+        pd = {k: v.to(dev) for k, v in p.items()}
+        with torch.no_grad():
+            enc = encdec.encode(pd, cfg, frames.to(dev))
+            _, cache = api.prefill(pd, cfg, {"tokens": toks[:, :8].to(dev),
+                                             "frames": frames.to(dev)}, 16)
+            lg, _ = api.decode_step(pd, cfg, cache, toks[:, 8:].to(dev), 8)
+        got.append((enc.cpu().float(), lg.cpu().float()))
+    (enc, lg), (want_enc, want_lg) = got
+    assert torch.isfinite(enc).all() and torch.isfinite(lg).all()
+    assert (enc - want_enc).abs().max() <= tol
+    assert (lg - want_lg).abs().max() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "whisper-base"])
+def test_mla_and_encdec_protocols_init_and_train_on_card(cuda, arch):
+    """F5's check for the two new families: ``SDFLBProtocol`` over the
+    smoke config starts on the card with the CPU's weights bit for bit,
+    takes the per-leaf trust path (no kernel launch) and trains one sync
+    round (whisper's batches carry frames) to finite scores and losses."""
+    from repro_torch.configs.base import FederationConfig, TrainConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.core.protocol import SDFLBProtocol
+    from repro_torch.data.datasets import synthetic_tokens
+    from repro_torch.models import api
+    cfg = get_smoke_config(arch)
+    fed = FederationConfig(num_clusters=2, workers_per_cluster=2)
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, grad_clip=1.0)
+    proto = SDFLBProtocol(cfg, fed, tc, use_blockchain=False, seed=0,
+                          device=cuda)
+    cpu = api.init(cfg, torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert set(cpu) == set(proto.global_params)
+    for k, v in cpu.items():
+        assert proto.global_params[k].device.type == "cuda"
+        assert torch.equal(proto.global_params[k].cpu(), v), k
+    batch = synthetic_tokens(4, 2, 64, cfg.vocab_size, seed=0)
+    if cfg.family == "audio":
+        batch["frames"] = np.random.default_rng(0).standard_normal(
+            (4, 2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    wrappers = (trust_score.trust_score_stats, trust_agg.trust_agg,
+                fused_round.fused_async_agg, swa_decode.swa_decode,
+                ssd_scan.ssd_scan)
+    before = [f.launches for f in wrappers]
+    rec = proto.run_round(batch)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before
+    assert np.isfinite(rec.scores).all() and np.isfinite(rec.losses).all()
+    proto.finalize()

@@ -215,7 +215,8 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
     an MoE decoder and the zamba2 hybrid, through K4's plain backward), the
     attention's chunked backward, and the clipped AdamW step; and the MoE
     decoder's and xLSTM's prefill and decode (xLSTM's mLSTM and sLSTM
-    gates: log σ, exp, tanh)."""
+    gates: log σ, exp, tanh), MLA's prefill and absorbed decode, and
+    whisper's loss and gradients (its GELU's tanh)."""
     from repro_torch.configs.base import FederationConfig, TrainConfig
     from repro_torch.configs.registry import get_smoke_config
     from repro_torch.core import trust
@@ -282,6 +283,26 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
             p, {"tokens": toks, "labels": toks})
         torch.autograd.grad(loss, list(p.values()))
 
+    acfg = get_smoke_config("minicpm3-4b").replace(dtype="float32")
+    a_params = api.init(acfg, torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
+
+    def mla_decode():
+        with torch.no_grad():
+            _, cache = api.prefill(a_params, acfg, {"tokens": toks}, 65)
+            api.decode_step(a_params, acfg, cache, toks[:, :1], 64)
+
+    wcfg = get_smoke_config("whisper-base").replace(dtype="float32")
+    w_params = api.init(wcfg, torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
+    frames = t(2, wcfg.encoder_seq, wcfg.d_model)
+
+    def whisper_loss_and_grad():
+        p = {k: v.requires_grad_(True) for k, v in w_params.items()}
+        loss, _ = api.lm_loss_fn(wcfg, remat=True)(
+            p, {"tokens": toks, "labels": toks, "frames": frames})
+        torch.autograd.grad(loss, list(p.values()))
+
     def attention_backward():
         qkv = [t(1, 256, 8, 16).requires_grad_(True),
                t(1, 256, 2, 16).requires_grad_(True),
@@ -321,6 +342,8 @@ def test_plain_paths_do_not_enter_mkl_vector_math():
         "moe_loss_and_grad": moe_loss_and_grad,
         "moe_decode": moe_decode,
         "xlstm_decode": xlstm_decode,
+        "mla_decode": mla_decode,
+        "whisper_loss_and_grad": whisper_loss_and_grad,
         "blocked_attention_backward": attention_backward,
         "adamw_update": adamw_step,
     }

@@ -396,3 +396,37 @@ def test_failing_task_is_isolated_in_its_block():
     assert led.verify_chain(deep=True)
     torch.testing.assert_close(torch.from_numpy(b.stake),
                                torch.full((4,), 10.0, dtype=torch.float64))
+
+
+def test_finished_protocol_waits_for_the_cycle_collector_in_both_packages(
+        jref):
+    """What earlier phases of ``chip_smoke.py`` leave on the card (the
+    garbage lead of ROADMAP.md's Queue 3): a finished ``SDFLBProtocol``
+    outlives its last reference until ``gc.collect()`` runs, in the port
+    and in the reference alike, since a node holds its tasks and each task
+    its node (``src/repro/core/node.py:681`` and ``:1015``). So it is the
+    reference's own cycle, not a fault of the port; ``chip_smoke.py``'s
+    ``_release`` collects it before a phase that needs the card."""
+    import gc
+    import weakref
+    from repro.core.protocol import SDFLBProtocol as JProtocol
+    from repro_torch.core.protocol import SDFLBProtocol
+    data = make_federated_mnist(16, samples=256, seed=0)
+    cases = [(SDFLBProtocol, FederationConfig(), TrainConfig(),
+              get_config("paper-net"), {"device": "cpu"}),
+             (JProtocol, jref.Fed(), jref.Train(), jref.cfg, {})]
+    gc.collect()
+    gc.disable()
+    try:
+        for protocol, fed, tc, cfg, kw in cases:
+            proto = protocol(cfg, fed, tc, seed=0, **kw)
+            proto.run_round(data.round_batches(8))
+            proto.finalize()
+            node, params = weakref.ref(proto.node), \
+                weakref.ref(jax.tree.leaves(proto.global_params)[0])
+            del proto
+            assert node() is not None and params() is not None, protocol
+            gc.collect()
+            assert node() is None and params() is None, protocol
+    finally:
+        gc.enable()

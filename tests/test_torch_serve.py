@@ -363,8 +363,9 @@ def test_serve_cli_prints_the_reference_lines(capsys):
 
 
 def test_registry_holds_only_ported_archs():
-    assert ARCH_IDS == [ARCH, "olmoe-1b-7b", "qwen2-moe-a2.7b",
-                        "smollm-135m", "xlstm-1.3b", "yi-6b", "zamba2-7b"]
+    assert ARCH_IDS == [ARCH, "minicpm3-4b", "olmoe-1b-7b",
+                        "qwen2-moe-a2.7b", "smollm-135m", "whisper-base",
+                        "xlstm-1.3b", "yi-6b", "zamba2-7b"]
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.window) == (24, 2560, 32, 8, 80,
@@ -376,7 +377,7 @@ def test_registry_holds_only_ported_archs():
     assert (yi.num_layers, yi.d_model, yi.num_kv_heads, yi.rope_theta,
             yi.window) == (32, 4096, 4, 5_000_000.0, 0)
     with pytest.raises(KeyError):
-        get_config("minicpm3-4b")
+        get_config("chameleon-34b")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
