@@ -185,15 +185,18 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   134,515,008) bf16 (K3 also one kernel a call, a bitwise
                   rerun and its planted faults) and K1 against the per-leaf
                   statistics within 1e-3 of the sums of |terms|, with
-                  times and bounds); a same-seed one-round rerun must seal
-                  the same genesis and round blocks; one worker's backward
+                  times and bounds); a same-seed one-round rerun without
+                  the chain must reach the sync round's global params and
+                  scores bit for bit (what its block records: the scores
+                  and the cid of the params); one worker's backward
                   under ``torch.use_deterministic_algorithms(warn_only=
                   True)`` may flag no op; one worker's step profiled
   dense_serve     smollm-135m and yi-6b: card against CPU at full width
                   cut to 2 layers (f32 and bf16; batch 2, prompt 160, 4
                   tokens), then at full size (bf16, batch 4, prompt 1024,
                   32 tokens) twice with the same tokens; no kernel (both
-                  have window 0)
+                  have window 0); starts with earlier phases' garbage
+                  collected
   moe_parity      qwen2-moe-a2.7b and olmoe-1b-7b: card against CPU at
                   full width cut to 2 layers (f32 and bf16; batch 2,
                   prompt 160, 4 tokens); one MoE layer at qwen2's full
@@ -207,7 +210,8 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
   moe_serve       both MoE configs at full size (bf16; 14.3 B and 6.9 B
                   parameters), batch 4, prompt 1024, 32 tokens, twice with
                   the same tokens; decode ms a step beside the weight
-                  floor (every expert runs at C >= 1); no kernel
+                  floor (every expert runs at C >= 1); no kernel; starts
+                  with earlier phases' garbage collected
   moe_round       olmoe-1b-7b at full width cut to one layer (D =
                   625,612,800) through ``SDFLBProtocol`` as
                   ``launch/train.py --full`` builds it, without the chain:
@@ -302,9 +306,24 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   held-out loss falling, no kernel, a bitwise same-seed
                   rerun, the deterministic-algorithms probe, a profiled
                   worker step
-Each of the four reports the device memory held when it starts, before
-and after the cycle collector runs (``memory_before_release``,
-``memory_held_at_start``).
+  vlm_serve       chameleon-34b (the VLM family: 256 patch embeddings of
+                  the stub VQ frontend before the text): starts with at
+                  most 1 GB allocated; card against CPU at full width cut
+                  to one layer (f32 and bf16; batch 2, the 256 patches and
+                  a 64-token prompt, 4 greedy tokens within PARITY_TOL) and
+                  the loss (patch positions masked) and every leaf's
+                  gradient (batch 1, 64 tokens) within ZGRAD_TOL; then at
+                  full size (48 layers, bf16, 34,293,424,128 parameters)
+                  serving batch 4, the patches and a 1792-token prompt
+                  (2048 fused positions, two KV chunks) and 32 tokens
+                  twice with the same tokens:
+                  prefill ms and text tokens/s, decode ms a step against
+                  the floor (the weights and the whole K/V cache read once
+                  a step), peak memory, four decode steps under
+                  torch.profiler; no kernel launches
+The last five, ``dense_serve`` and ``moe_serve`` report the device memory
+held when they start, before and after the cycle collector runs
+(``memory_before_release``, ``memory_held_at_start``).
 
 Then it prints the run's total wall with each phase's wall seconds, the
 card's ``nvidia-smi`` line, one
@@ -1062,15 +1081,13 @@ def phase_serve_parity():
     width with the cuts listed in the phase line."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
-    from repro_torch.models import api
     cuts = {"num_layers": 2, "window": 256}
     kw = dict(batch=2, prompt_len=320, gen=4, seed=3)
     out = {"phase": "serve_parity", "arch": ARCH, "cuts": cuts, **kw,
            "tol": PARITY_TOL}
     for dtype in ("float32", "bfloat16"):
         cfg = get_config(ARCH).replace(dtype=dtype, **cuts)
-        params = api.init(cfg, torch.Generator().manual_seed(3),
-                          torch.device("cpu"))
+        params = _drawn_on_card(cfg, 3)
         cpu = serve(cfg, device="cpu", params=params, **kw)
         reset_counts()
         card = serve(cfg, device="cuda",
@@ -1424,14 +1441,12 @@ def phase_zamba_parity():
     width with the cuts listed in the phase line."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve
-    from repro_torch.models import api
     kw = dict(batch=2, prompt_len=256, gen=4, seed=3)
     out = {"phase": "zamba_parity", "arch": ZAMBA, "cuts": ZPARITY_CUTS,
            **kw, "tol": PARITY_TOL}
     for dtype in ("float32", "bfloat16"):
         cfg = get_config(ZAMBA).replace(dtype=dtype, **ZPARITY_CUTS)
-        params = api.init(cfg, torch.Generator().manual_seed(3),
-                          torch.device("cpu"))
+        params = _drawn_on_card(cfg, 3)
         t0 = time.monotonic()
         cpu = serve(cfg, device="cpu", params=params, **kw)
         cpu_s = time.monotonic() - t0
@@ -2024,15 +2039,18 @@ LLM = "smollm-135m"
 # run, 1 for the chained sync run. Each round with the chain puts the 269
 # MB model to IPFS (as 538 MB of f32, zlib on one host core: 105-128 s a
 # put beside an NVIDIA H100 80GB HBM3 at 700.00 W, PERF.md section 5), and
-# a round waits for the last one's block, so only the sync run and its
-# same-seed rerun settle on the chain, one round each (two chained rounds
-# took the whole script to 1106 s of its 1200 s limit); the async run trains
-# without it.
+# a round waits for the last one's block, so only the sync run settles on
+# the chain, one round; the async run trains without it. Its same-seed
+# rerun runs without the chain too and must reach the sync run's global
+# params and scores bit for bit: the round's block records those scores
+# and the cid of those params (the SHA-256 of their compressed msgpack,
+# ``chain/ipfs.py``), and zlib is deterministic, so equal bits are equal
+# records; the chain itself is rerun block for block by ``determinism``.
 LLM_TRAIN = ["--arch", LLM, "--full", "--workers", "8", "--clusters", "2",
              "--batch", "32", "--seq", "128", "--rounds", "3"]
 LLM_SYNC = ["--rounds", "1"]
 LLM_ASYNC = ["--async", "--no-blockchain"]
-LLM_RERUN = ["--rounds", "1"]
+LLM_RERUN = ["--rounds", "1", "--no-blockchain"]
 LLM_HELDOUT_SEED = 1000          # a batch no round trains on
 # flat-pack (K1 over the (8, 134,515,008) bf16 pack) against the per-leaf
 # statistics: f32 sums over 1.3e8 terms in two orders. K1's longest chain
@@ -2309,14 +2327,13 @@ def phase_zamba_grad_parity():
     Mamba2 layer a call, and no other kernel."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data.datasets import synthetic_tokens
-    from repro_torch.models import api, hybrid
+    from repro_torch.models import hybrid
     dev = torch.device("cuda")
     out = {"phase": "zamba_grad_parity", "arch": ZAMBA, "cuts": ZPARITY_CUTS,
            **ZGRAD, "tol": ZGRAD_TOL}
     for dtype in ("float32", "bfloat16"):
         cfg = get_config(ZAMBA).replace(dtype=dtype, **ZPARITY_CUTS)
-        params = api.init(cfg, torch.Generator().manual_seed(3),
-                          torch.device("cpu"))
+        params = _drawn_on_card(cfg, 3)
         data = synthetic_tokens(1, ZGRAD["batch"], ZGRAD["seq"],
                                 cfg.vocab_size, seed=ZGRAD["seed"])
         batch = {k: torch.from_numpy(v[0]) for k, v in data.items()}
@@ -2360,6 +2377,21 @@ def _release():
     other, so their device memory waits for the cycle collector."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _drawn_on_card(cfg, seed):
+    """``api.init(cfg)`` from a CUDA generator of ``seed``, copied to the
+    CPU: the weights a parity phase hands to both devices. The CPU's
+    generator draws ~115 M numbers a second on one core (15.4 s for
+    chameleon-34b's one layer at full width on an NVIDIA H100 80GB HBM3
+    host, PERF.md section 6), the card's in milliseconds."""
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    drawn = api.init(cfg, torch.Generator(dev).manual_seed(seed), dev)
+    params = {k: v.cpu() for k, v in drawn.items()}
+    del drawn
+    torch.cuda.empty_cache()
+    return params
 
 
 def _round_run(cfg, fresh, workers, async_mode, rounds, seed=0,
@@ -2872,9 +2904,10 @@ def phase_llm_round(name):
     per-leaf one, each timed against the per-leaf round (the same scores
     within LLM_SCORE_TOL and decisions; K1 with K2 or K3 once each,
     checked against their plain versions and K1 against the per-leaf
-    statistics at W = 8, D = 134,515,008); a same-seed rerun seals the
-    first run's blocks; the deterministic-algorithms probe
-    of the backward and one worker's step profiled."""
+    statistics at W = 8, D = 134,515,008); a same-seed rerun without the
+    chain reaches the sync round's global params and scores bit for bit;
+    the deterministic-algorithms probe of the backward and one worker's
+    step profiled."""
     import dataclasses as dc
     from repro_torch.configs.registry import get_config
     from repro_torch.core import async_agg, fl_step
@@ -2895,6 +2928,10 @@ def phase_llm_round(name):
     reset_counts()
     proto, out["sync"], hashes = _llm_run(LLM_SYNC, heldout)
     out["sync"]["launches"] = read_counts()
+    out["sync"]["blocks"] = len(hashes)
+    # what the rerun must reach: round 1's global params and scores
+    first = ({k: v.cpu() for k, v in proto.global_params.items()},
+             proto.history[0].scores.copy())
     _expect("llm_round sync", out["sync"]["launches"], _trust_launches(0, 0))
     D = api.param_count(proto.global_params)
     out.update(W=proto.W, D=D, ipfs_model_bytes=sum(
@@ -3018,14 +3055,18 @@ def phase_llm_round(name):
     out["kernels_at_llm_shape"] = kernels
     out["flat_launches"] = flat_counts
 
-    # a same-seed rerun of the sync run's first round seals the same
-    # genesis and round block (the finalize block's timestamp differs)
-    again, rerun, again_hashes = _llm_run(LLM_RERUN, heldout)
-    check(again_hashes[:2] == hashes[:2], "llm_round: same-seed runs "
-          "sealed different blocks")
-    out["rerun"] = {"identical_blocks": 2, "round_wall_s":
-                    rerun["round_wall_s"], "settle_s": rerun["settle_s"],
-                    "ipfs_put_s": rerun["ipfs_put_s"]}
+    # a same-seed rerun of the sync run's round without the chain reaches
+    # its global params and scores bit for bit (LLM_TRAIN's comment)
+    again, rerun, _ = _llm_run(LLM_RERUN, heldout)
+    identical = all(torch.equal(v, again.global_params[k].cpu())
+                    for k, v in first[0].items()) and \
+        np.array_equal(first[1], again.history[0].scores)
+    check(identical, "llm_round: the unchained same-seed round differs "
+          "from the chained one")
+    out["rerun"] = {"chain": False, "identical_params_and_scores": identical,
+                    "round_wall_s": rerun["round_wall_s"],
+                    "settle_s": rerun["settle_s"]}
+    del first
     step = _worker_step(cfg, again.global_params, {
         k: torch.from_numpy(v).to(dev) for k, v in heldout.items()})
     flagged, cublas = _deterministic_probe(step)
@@ -3049,14 +3090,15 @@ def phase_dense_serve(name):
     from repro_torch.launch.serve import serve
     from repro_torch.models import api
     bw, _ = peaks(name)
+    before, held = _held_after_release()
     out = {"phase": "dense_serve", "parity": DENSE_PARITY,
-           "serve": DENSE_SERVE, "tol": PARITY_TOL}
+           "serve": DENSE_SERVE, "tol": PARITY_TOL,
+           "memory_before_release": before, "memory_held_at_start": held}
     for arch in DENSE:
         rec = {}
         for dtype in ("float32", "bfloat16"):
             cfg = get_config(arch).replace(dtype=dtype, num_layers=2)
-            params = api.init(cfg, torch.Generator().manual_seed(3),
-                              torch.device("cpu"))
+            params = _drawn_on_card(cfg, 3)
             t0 = time.monotonic()
             cpu = serve(cfg, device="cpu", params=params, **DENSE_PARITY)
             cpu_s = time.monotonic() - t0
@@ -3318,7 +3360,9 @@ def phase_moe_serve(name):
     from repro_torch.launch.serve import serve
     from repro_torch.models import api, moe
     bw, _ = peaks(name)
-    out = {"phase": "moe_serve", "serve": DENSE_SERVE, "hbm_bytes_s": bw}
+    before, held = _held_after_release()
+    out = {"phase": "moe_serve", "serve": DENSE_SERVE, "hbm_bytes_s": bw,
+           "memory_before_release": before, "memory_held_at_start": held}
     B, P, G = DENSE_SERVE["batch"], DENSE_SERVE["prompt_len"], \
         DENSE_SERVE["gen"]
     dev = torch.device("cuda")
@@ -3331,7 +3375,7 @@ def phase_moe_serve(name):
         del params
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
+        held_before_serve = torch.cuda.memory_allocated()
         reset_counts()
         r = serve(cfg, seed=0, **DENSE_SERVE)
         peak = torch.cuda.max_memory_allocated()
@@ -3358,7 +3402,7 @@ def phase_moe_serve(name):
             "rerun_decode_ms_per_step": again.decode_s * 1e3 / (G - 1),
             "weight_stream_bound_ms_per_step": floor_ms,
             "decode_over_floor": r.decode_s * 1e3 / (G - 1) / floor_ms,
-            "memory_held_at_start": held,
+            "memory_held_before_serve": held_before_serve,
             "max_memory_allocated": peak, "identical_tokens": True,
             "sample_tokens": r.tokens[0, :16].tolist()}
         del r, again
@@ -4138,17 +4182,15 @@ def _nbytes(tree):
 
 def _serve_parity(out, cfg32, serve_kw, grad_batch):
     """``serve`` on the card against the CPU in f32 and bf16 from weights
-    drawn once in f32 (seed 3; bf16: rounded), within PARITY_TOL
-    (``parity_record``), and the loss and every leaf's gradient on
-    ``grad_batch`` (``_grad_parity``); no kernel launches. Fills
+    drawn once in f32 (seed 3, ``_drawn_on_card``; bf16: rounded), within
+    PARITY_TOL (``parity_record``), and the loss and every leaf's gradient
+    on ``grad_batch`` (``_grad_parity``); no kernel launches. Fills
     ``out[dtype]``."""
     from repro_torch.launch.serve import serve
-    from repro_torch.models import api
     dev = torch.device("cuda")
     t0 = time.monotonic()
-    p32 = api.init(cfg32, torch.Generator().manual_seed(3),
-                   torch.device("cpu"))
-    out["cpu_init_s"] = time.monotonic() - t0
+    p32 = _drawn_on_card(cfg32, 3)
+    out["init_s"] = time.monotonic() - t0
     g32 = None
     for dtype in ("float32", "bfloat16"):
         cfg = cfg32.replace(dtype=dtype)
@@ -4392,6 +4434,124 @@ def phase_whisper_round(name):
     emit(out)
 
 
+# chameleon-34b (the VLM family: 48 layers, d 8192, 64 heads and 8 KV heads
+# of 128, d_ff 22016, V 65,536, an untied head; 256 patch embeddings of the
+# stub VQ frontend before the text; 34,293,424,128 parameters, 68.6 GB in
+# bf16): card against CPU at full width cut to one layer with all 256
+# patches, then served at full size. The serve's 256 patches and 1792 text
+# tokens make 2048 fused positions, two KV chunks; its cache holds 2080
+# slots. At batch 4 it peaks at 76.8 GB of the card's 85.0 (PERF.md
+# section 5).
+VLM = "chameleon-34b"
+VLM_CUTS = {"num_layers": 1}
+VLM_PARITY = dict(batch=2, prompt_len=64, gen=4, seed=3)
+VLM_SERVE = dict(batch=4, prompt_len=1792, gen=32)
+VLM_GRAD = dict(batch=1, seq=64, seed=5)
+VLM_PARAMS = 34_293_424_128
+VLM_HELD_MAX = 1e9               # bytes earlier phases may leave allocated
+
+
+def phase_vlm_serve(name):
+    """chameleon-34b. Starts with what earlier phases hold collected, at
+    most VLM_HELD_MAX allocated. Card against CPU at full width cut to one
+    layer (``VLM_PARITY``, ``_serve_parity``): prefill and decode logits and
+    greedy tokens within PARITY_TOL; the loss (the patch positions
+    masked) and every leaf's gradient at batch 1, 256 patches and 64
+    tokens within ZGRAD_TOL. Then the full size (bf16, seeded weights,
+    34,293,424,128 parameters) serving ``VLM_SERVE`` twice with the same
+    tokens: prefill ms and text tokens/s, decode ms a step against the floor (the
+    weights a step reads, all but the embedding's unused rows, and the
+    whole K/V cache, over the card's memory rate), peak memory, and four
+    decode steps under torch.profiler. No kernel launches anywhere."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import api
+    dev = torch.device("cuda")
+    before, held = _held_after_release()
+    free, total = torch.cuda.mem_get_info()
+    out = {"phase": "vlm_serve", "arch": VLM, "cuts": VLM_CUTS,
+           "parity": VLM_PARITY, "grad": VLM_GRAD, "serve": VLM_SERVE,
+           "tol": PARITY_TOL, "grad_tol": ZGRAD_TOL,
+           "memory_before_release": before, "memory_held_at_start": held,
+           "device_free_at_start": free, "device_total": total}
+    check(held <= VLM_HELD_MAX,
+          f"vlm_serve: {held} B still allocated after the collector ran "
+          f"(mem_get_info: {free} B free of {total}); the 68.6 GB model "
+          f"needs the card")
+    t0 = time.monotonic()
+    cfg32 = get_config(VLM).replace(dtype="float32", **VLM_CUTS)
+    rng = np.random.default_rng(VLM_GRAD["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg32.vocab_size,
+                                         (VLM_GRAD["batch"],
+                                          VLM_GRAD["seq"])))
+    patches = torch.from_numpy(rng.standard_normal(
+        (VLM_GRAD["batch"], cfg32.num_patch_tokens, cfg32.d_model),
+        dtype=np.float32))
+    _serve_parity(out, cfg32, VLM_PARITY, {
+        "tokens": toks, "labels": toks, "patch_embeds": patches})
+    out["parity_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    cfg = get_config(VLM)
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), dev)
+    n_params = api.param_count(params)
+    check(n_params == VLM_PARAMS, f"vlm_serve: {n_params} parameters")
+    out["full_init_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    r, again, peak = _serve_twice(cfg, params, VLM_SERVE, "vlm_serve")
+    B, P, G = VLM_SERVE["batch"], VLM_SERVE["prompt_len"], VLM_SERVE["gen"]
+    Pt = cfg.num_patch_tokens
+    out["full"] = {"layers": cfg.num_layers, "d_model": cfg.d_model,
+                   "dtype": cfg.dtype, "patch_tokens": Pt,
+                   "fused_positions": Pt + P, "cache_slots": Pt + P + G,
+                   "max_memory_allocated": peak,
+                   **_serve_times(r, again, VLM_SERVE)}
+    del r, again
+    out["serve_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    dt = getattr(torch, cfg.dtype)
+    inputs = {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, P),
+        generator=torch.Generator().manual_seed(1)).to(dev),
+        "patch_embeds": torch.randn(
+            (B, Pt, cfg.d_model),
+            generator=torch.Generator().manual_seed(2)).to(dev, dt)}
+    with torch.inference_mode():
+        logits, cache = api.prefill(params, cfg, inputs, Pt + P + G)
+        tok = logits[:, -1].float().argmax(-1, keepdim=True)
+        api.decode_step(params, cfg, cache, tok, Pt + P)       # warm
+        torch.cuda.synchronize()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+        t1 = time.monotonic()
+        for i in range(4):
+            api.decode_step(params, cfg, cache, tok, Pt + P + 1 + i)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t1
+        prof.stop()
+    dec = device_profile(prof, wall, ours=("gemm", "nvjet", "xmma"),
+                         label="gemm_s")
+    dec["device_activities_per_step"] = dec["activities"] / 4
+    out["full"]["decode_profile_4_steps"] = dec
+    out["profile_s"] = time.monotonic() - t0
+    nbytes = {k: _nbytes(v) for k, v in params.items()}
+    # a decode step reads every weight once, of the embedding only the B
+    # rows it looks up, and the whole K/V cache (every slot's score)
+    weights = (sum(nbytes.values()) - nbytes["embed"]
+               + B * cfg.d_model * params["embed"].element_size())
+    cache_bytes = _nbytes(cache)
+    bw, _ = peaks(name)
+    floor_ms = (weights + cache_bytes) / bw * 1e3
+    out["full"].update({
+        "param_count": n_params, "param_bytes": sum(nbytes.values()),
+        "weight_bytes_per_decode_step": weights,
+        "kv_cache_bytes": cache_bytes,
+        "decode_floor_ms_per_step": floor_ms,
+        "decode_over_floor": out["full"]["decode_ms_per_step"] / floor_ms})
+    del params, cache, logits, prof, inputs
+    _release()
+    emit(out)
+
+
 def _timed(walls, phase, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``walls[phase]``."""
     t0 = time.monotonic()
@@ -4469,6 +4629,7 @@ def main():
     run("mla_round", phase_mla_round, name)
     run("whisper_serve", phase_whisper_serve, name)
     run("whisper_round", phase_whisper_round, name)
+    run("vlm_serve", phase_vlm_serve, name)
     for counts in new_paths:
         for k in ("trust_score", "trust_agg", "fused_async_agg"):
             launches[k] += counts[k]

@@ -6,7 +6,8 @@ trust-weighted mean inside each cluster (the cluster head's FedAvg), stage
 2 the trust-weighted mean over clusters (the head↔head exchange).
 ``aggregate_fused`` is the single weighted sum the hierarchy telescopes to;
 ``aggregate`` and ``aggregate_head_gather`` compute the same value through
-the two stages.
+the two stages. ``rotate_heads`` rolls each cluster's members so the
+round's head sits at sub-index 0.
 """
 from __future__ import annotations
 
@@ -77,3 +78,19 @@ def broadcast_to_workers(params: Params, W: int) -> Params:
     """Global model redistributed to every worker: (W, ...) views."""
     return {k: x[None].expand((W,) + tuple(x.shape))
             for k, x in params.items()}
+
+
+def rotate_heads(x: Params, offsets: torch.Tensor) -> Params:
+    """Head rotation: roll each cluster's member axis so the round's head
+    is at sub-index 0 — member j of cluster c takes the update of member
+    (j + offsets[c]) mod Wc. offsets: (C,) ints (on-chain randomness)."""
+    C = offsets.shape[0]
+    out = {}
+    for k, u in x.items():
+        uc = _cluster_view(u, C)                           # (C, Wc, ...)
+        Wc = uc.shape[1]
+        src = (torch.arange(Wc, device=u.device)[None, :]
+               + offsets.to(u.device, torch.int64)[:, None]) % Wc
+        rows = torch.arange(C, device=u.device)[:, None]
+        out[k] = uc[rows, src].reshape(u.shape)
+    return out

@@ -16,7 +16,10 @@ from repro_torch.configs.registry import ARCH_IDS, get_config, \
 from repro_torch.core.protocol import SDFLBProtocol
 from repro_torch.data.datasets import synthetic_tokens
 
-# the port's LLM archs: the dense and MoE decoders, the hybrid and xLSTM
+# the port's LLM archs: the dense and MoE decoders, the hybrid and xLSTM;
+# not the VLM nor the audio family, whose batches need the stub frontends'
+# ``patch_embeds`` or ``frames`` that ``synthetic_tokens`` does not make
+# (the reference's example stops at ``batch["patch_embeds"]`` there)
 LLM_ARCHS = [a for a in ARCH_IDS
              if get_config(a).family in ("dense", "moe", "hybrid", "ssm")]
 

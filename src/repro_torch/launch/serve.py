@@ -11,13 +11,18 @@ cross K/V), on the card unless asked for the CPU.
         --arch xlstm-1.3b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch whisper-base --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch chameleon-34b --device cpu
 
 The flags and printed lines are those of ``repro.launch.serve``; without
 ``--full`` it runs the arch's smoke config. Weights and prompts come from
 ``--seed``: weights from a generator on the run's device, prompts (and the
-audio family's frames, normal (B, encoder_seq, d) in ``cfg.dtype``, the
-stub frontend's output) from CPU generators (so every device serves the
-same inputs). ``serve(cfg, ...)``
+VLM family's patch embeddings, normal (B, P, d) in ``cfg.dtype``, and the
+audio family's frames, normal (B, encoder_seq, d), the stub frontends'
+output) from CPU generators (so every device serves the same inputs). The
+VLM's P patches go before the prompt: its cache holds P + prompt + gen
+slots, its decode continues at P + prompt, and the prefill's tokens/s
+count the prompt's text tokens, as the reference's. ``serve(cfg, ...)``
 is the same run as a function, for callers that want the tokens, logits and
 timings. Greedy decoding (``temperature <= 0``) is deterministic; sampling
 draws from a seeded generator on the run's device.
@@ -75,6 +80,13 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
             0, cfg.vocab_size, (batch, prompt_len),
             generator=torch.Generator().manual_seed(seed + 1)).to(dev)
         inputs = {"tokens": prompts}
+        off = 0
+        if cfg.family == "vlm":
+            off = cfg.num_patch_tokens
+            inputs["patch_embeds"] = torch.randn(
+                (batch, off, cfg.d_model),
+                generator=torch.Generator().manual_seed(seed + 2)
+            ).to(device=dev, dtype=getattr(torch, cfg.dtype))
         if cfg.family == "audio":
             inputs["frames"] = torch.randn(
                 (batch, cfg.encoder_seq, cfg.d_model),
@@ -89,7 +101,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
             probs = torch.softmax(last / temperature, dim=-1)
             return torch.multinomial(probs, 1, generator=sampler)
 
-        cache_len = prompt_len + gen
+        cache_len = off + prompt_len + gen
         _sync(dev)
         t0 = time.monotonic()
         logits, cache = api.prefill(params, cfg, inputs, cache_len)
@@ -101,7 +113,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 64,
         t0 = time.monotonic()
         for t in range(gen - 1):
             logits, cache = api.decode_step(params, cfg, cache, tok,
-                                            prompt_len + t)
+                                            off + prompt_len + t)
             tok = sample(logits)
             toks.append(tok)
             lgs.append(logits[:, -1])

@@ -39,7 +39,10 @@ from repro_torch.core.protocol import SDFLBProtocol
 from repro_torch.data.datasets import make_federated_mnist, synthetic_tokens
 
 # the archs this launcher trains: the LLMs (dense and MoE decoders, the
-# hybrid and xLSTM) and the CNN
+# hybrid and xLSTM) and the CNN. Not the VLM nor the audio family: their
+# batches need the stub frontends' ``patch_embeds`` or ``frames``, which
+# ``synthetic_tokens`` does not make, and the reference's launcher (which
+# feeds it alone) stops at the loss's ``batch["patch_embeds"]`` there
 TRAIN_ARCHS = [a for a in ARCH_IDS if get_config(a).family
                in ("dense", "moe", "hybrid", "ssm")] + ["paper-net"]
 

@@ -1,31 +1,30 @@
 """Model API of the port — the CNN, dense- and MoE-decoder (GQA or MLA
-attention), hybrid, xLSTM (``ssm``) and encoder-decoder (``audio``)
-branches of ``repro.models.api``.
+attention), VLM (early fusion), hybrid, xLSTM (``ssm``) and
+encoder-decoder (``audio``) branches of ``repro.models.api``.
 
     init(cfg, gen, device)                     -> params (flat dict)
     loss_fn(cfg)(params_w, batch, mask=None)   -> (loss (W,), metrics)
-                                                  [cnn, dense, moe, hybrid,
-                                                   ssm, audio]
     lm_loss_fn(cfg)(params, batch)             -> (loss, metrics)
-                                                  [dense, moe, hybrid, ssm,
-                                                   audio]
+                                                  [every family but cnn]
     forward(params, cfg, batch)                -> (logits, aux)
-                                                  [dense, moe, hybrid, ssm,
-                                                   audio]
+                                                  [every family but cnn]
     prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
     cache_shape(cfg, batch, seq), make_cache(cfg, batch, seq, device)
     decode_step(params, cfg, cache, tokens, cur_index) -> (logits, cache)
+    flat_param_spec, flat_packable, flatten_params, unflatten_params
+                                               -> the flat (D,) view
 
 CNN batches are dicts ``{images (W, B, 28, 28, 1), labels (W, B)}`` with
 the worker dimension first; a single model is the W = 1 case (``stack``).
 Decoder batches are ``{tokens (B, S)}`` (``{tokens, labels}``, each
-(W, B, S), for ``loss_fn``); the audio family's also carry ``frames``
-(B, encoder_seq, d), the stub frontend's embeddings ((W, B, Se, d) for
-``loss_fn``). The dense and MoE families run through ``transformer`` (the
-MoE layers through ``moe``, whose aux loss the LM loss adds and reports),
-the hybrid (zamba2) through ``hybrid``, xLSTM (the ``ssm`` family) through
-``xlstm``, whisper (``audio``) through ``encdec``; the VLM family waits
-for its slice (``transformer.check_ported`` raises). The hybrid trains
+(W, B, S), for ``loss_fn``); the VLM family's also carry ``patch_embeds``
+(B, P, d) and the audio family's ``frames`` (B, encoder_seq, d), the stub
+frontends' embeddings ((W, B, P, d) and (W, B, Se, d) for ``loss_fn``).
+The dense, MoE and VLM families run through ``transformer`` (the MoE
+layers through ``moe``, whose aux loss the LM loss adds and reports; the
+VLM's patches before the tokens, its decode indices counting them), the
+hybrid (zamba2) through ``hybrid``, xLSTM (the ``ssm`` family) through
+``xlstm``, whisper (``audio``) through ``encdec``. The hybrid trains
 through K4 and its backward (``kernels.ssd_scan``), xLSTM through K4's
 wide path and its backward and the sLSTM scan's VJP (``ssm._SLSTMScan``).
 """
@@ -38,6 +37,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import pack
 from repro_torch.models import cnn as CNN
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
@@ -69,13 +69,19 @@ def forward(params: Params, cfg: ModelConfig, batch):
     if cfg.family == "audio":
         return ED.encdec_forward(params, cfg, batch["tokens"],
                                  frames=batch["frames"])
-    return TF.decoder_forward(params, cfg, batch["tokens"])
+    return TF.decoder_forward(params, cfg, batch["tokens"],
+                              patch_embeds=_patches(cfg, batch))
+
+
+def _patches(cfg: ModelConfig, batch) -> Optional[torch.Tensor]:
+    """The VLM batch's ``patch_embeds``; None for the other families."""
+    return batch["patch_embeds"] if cfg.family == "vlm" else None
 
 
 def prefill(params: Params, cfg: ModelConfig, batch, cache_len: int):
     """Process the prompt, returning (last_logits (B, 1, V), decode cache).
     The cache is allocated at ``cache_len`` slots; decode continues at
-    cur_index = prompt_len."""
+    cur_index = prompt_len (VLM: after the patches, P + prompt_len)."""
     if cfg.family == "hybrid":
         return HY.hybrid_forward(params, cfg, batch["tokens"],
                                  prefill_cache_len=cache_len)
@@ -87,6 +93,7 @@ def prefill(params: Params, cfg: ModelConfig, batch, cache_len: int):
                                  frames=batch["frames"],
                                  prefill_cache_len=cache_len)
     return TF.decoder_forward(params, cfg, batch["tokens"],
+                              patch_embeds=_patches(cfg, batch),
                               prefill_cache_len=cache_len)
 
 
@@ -202,10 +209,12 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
     """One decoder's causal-LM loss, the LM branch of the reference's
     ``loss_fn``: f(params, {tokens (B, S), labels (B, S)}) -> (loss (),
     {"loss", "aux"}), for the dense and MoE decoders, the hybrid, xLSTM
-    (the last two: head ``lm_head``, offset 0) and whisper (``frames`` in
-    the batch too; the tied head ``embed.T``, offset 0). ``aux`` is the MoE
-    layers' load-balance and z-loss, summed over the layers (0 for the
-    other families)."""
+    (the last two: head ``lm_head``, offset 0), the VLM (``patch_embeds``
+    (B, P, d) in the batch too; head ``lm_head``, offset P: the patches'
+    positions get no target) and whisper (``frames`` in the batch too; the
+    tied head ``embed.T``, offset 0). ``aux`` is the MoE layers'
+    load-balance and z-loss, summed over the layers (0 for the other
+    families)."""
     lm_head_forward = {"hybrid": HY.hybrid_forward,
                        "ssm": XL.xlstm_forward}.get(cfg.family)
     if lm_head_forward is None and cfg.family != "audio":
@@ -213,6 +222,7 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
 
     def f(params: Params, batch: Dict[str, torch.Tensor]):
         kw = dict(remat=remat, kv_chunk=kv_chunk, return_hidden=True)
+        offset = 0
         if lm_head_forward is not None:
             x, aux = lm_head_forward(params, cfg, batch["tokens"], **kw)
             head = params["lm_head"]
@@ -220,11 +230,17 @@ def lm_loss_fn(cfg: ModelConfig, *, remat: bool = False,
             x, aux = ED.encdec_forward(params, cfg, batch["tokens"],
                                        frames=batch["frames"], **kw)
             head = params["embed"].T
+        elif cfg.family == "vlm":
+            x, aux = TF.decoder_forward(params, cfg, batch["tokens"],
+                                        patch_embeds=batch["patch_embeds"],
+                                        **kw)
+            head = params["lm_head"]
+            offset = batch["patch_embeds"].shape[1]
         else:
             x, aux = TF.decoder_forward(params, cfg, batch["tokens"], **kw)
             head = (params["embed"].T if cfg.tie_embeddings
                     else params["lm_head"])
-        targets = _shifted_targets(batch["labels"], x.shape[1], 0)
+        targets = _shifted_targets(batch["labels"], x.shape[1], offset)
         loss = _chunked_xent(x, head, targets) + aux
         return loss, {"loss": loss,
                       "aux": torch.as_tensor(aux, dtype=torch.float32,
@@ -236,8 +252,9 @@ def loss_fn(cfg: ModelConfig, *, remat: bool = False, kv_chunk: int = 1024):
     """Returns f(params_w, batch, mask=None) -> (loss (W,), metrics), every
     worker's loss on its own batch. CNN: ``mask`` is the conv2 dropout keep
     mask (``cnn.dropout_mask``); None evaluates without dropout; metrics
-    {"loss", "accuracy"}. Dense and MoE decoders, the hybrid, xLSTM and
-    whisper: batch leaves (W, B, S) (whisper's ``frames`` (W, B, Se, d)),
+    {"loss", "accuracy"}. Dense, MoE and VLM decoders, the hybrid, xLSTM
+    and whisper: batch leaves (W, B, S) (the VLM's ``patch_embeds``
+    (W, B, P, d), whisper's ``frames`` (W, B, Se, d)),
     each worker's slice of every leaf through ``lm_loss_fn`` in turn
     (``remat``, ``kv_chunk``), no dropout; metrics {"loss", "aux"}, each
     (W,)."""
@@ -271,3 +288,32 @@ def worker(tree: Dict[str, torch.Tensor], w: int) -> Dict[str, torch.Tensor]:
 
 def param_count(params: Params) -> int:
     return sum(x.numel() for x in params.values())
+
+
+# --- flat-param view (the fused trust round's packed layout) -----------------
+# Thin delegations to ``kernels.pack``: a model's flat (D,) coordinate space
+# (each leaf's offset, size and shape, the pack dtype, the length D).
+
+def flat_param_spec(params: Params) -> pack.PackSpec:
+    """The pack layout of ``params``: leaf order (sorted keys, the
+    reference's ``jax.tree.leaves`` order), each leaf's (offset, size,
+    shape) on the flat axis, the pack dtype and D."""
+    return pack.pack_spec(params)
+
+
+def flat_packable(params: Params) -> bool:
+    """Whether ``params`` admits the flat view (one floating leaf dtype,
+    what ``FederationConfig.fused_trust_path`` asks of a model)."""
+    return pack.packable(params)
+
+
+def flatten_params(params: Params):
+    """params → ((D,) vector, spec). Inverse: ``unflatten_params``."""
+    spec = pack.pack_spec(params)
+    return torch.cat([params[k].reshape(-1) for k in spec.keys]), spec
+
+
+def unflatten_params(flat: torch.Tensor, spec: pack.PackSpec) -> Params:
+    """(D,) vector and spec → params (views into ``flat``), the exact
+    inverse of ``flatten_params``."""
+    return pack.unpack_vector(flat, spec)

@@ -1,5 +1,5 @@
-"""Decoder-only transformer stack of the port — the dense family of
-``repro.models.transformer``.
+"""Decoder-only transformer stack of the port — the dense, MoE and VLM
+families of ``repro.models.transformer``.
 
 Params are one flat dict: ``embed`` (V, d), ``final_norm`` (d,),
 ``lm_head`` (d, V) unless the embeddings are tied, and the per-layer params
@@ -16,7 +16,11 @@ MoE layers (``models/moe.py``) replace the SwiGLU MLP under ``moe.``
 (L, d, 1)); the aux loss is summed over the layers in f32, in layer
 order. MLA attention (``attn_type == "mla"``, minicpm3-4b) replaces the
 GQA leaves under ``attn.`` (``layers.attn.wq_a`` … ``layers.attn.wo``).
-The VLM family waits for its slice.
+The VLM family (chameleon-34b) is the dense stack fed early-fused
+inputs: ``patch_embeds`` (B, P, d), the stub VQ frontend's output, go
+before the token embeddings, so the model's sequence holds P + S
+positions, 0 … P + S − 1; a prefill fills P + S slots of the cache, and
+decode continues at ``cur_index`` = P + S, counting the patches.
 
 The decode cache is a dict of stacked tensors in ``cfg.dtype``, written in
 place: ``decoder_decode_step`` fills slot ``cur_index`` of each layer and
@@ -25,7 +29,7 @@ returns the same tensors. GQA keeps two, (L, B, S, KV, hd) ``k`` and
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -44,11 +48,7 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            "family 'vlm' is not ported yet (the decoder stack runs the "
-            "dense and moe families)")
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise ValueError(f"family {cfg.family!r} has no decoder stack")
 
 
@@ -132,11 +132,17 @@ def layer_views(params: Params, prefix: str, n: int) -> List[Dict]:
 # forward
 # ---------------------------------------------------------------------------
 
-def embed_tokens(params: Params, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 patch_embeds: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """tokens: (B, S) integer → (B, S, d). ``F.embedding``: its backward
-    sums the rows of repeated tokens in a fixed order on the card too."""
-    return F.embedding(tokens, params["embed"])
+    sums the rows of repeated tokens in a fixed order on the card too.
+    VLM: ``patch_embeds`` (B, P, d), cast to the embedding's dtype, go
+    before the tokens (early fusion) → (B, P + S, d)."""
+    x = F.embedding(tokens, params["embed"])
+    if patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    return x
 
 
 def _head(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -176,7 +182,8 @@ def _remat_block(lp, cfg: ModelConfig, x: torch.Tensor, positions,
 
 
 def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                    *, remat: bool = False, kv_chunk: int = 1024,
+                    *, patch_embeds: Optional[torch.Tensor] = None,
+                    remat: bool = False, kv_chunk: int = 1024,
                     prefill_cache_len: int = 0, return_hidden: bool = False):
     """Returns (logits (B, S, V), aux_loss); with ``return_hidden`` the
     final-normed hidden states (B, S, d) instead of the logits (the loss
@@ -184,11 +191,12 @@ def decoder_forward(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     (``prefill_cache_len > 0``) returns (last_logits (B, 1, V), cache) with
     the cache's (L, B, prefill_cache_len, ...) tensors in ``cfg.dtype``
     holding each layer's K/V (or MLA latent) in the first S slots and zeros
-    after.
+    after. VLM: ``patch_embeds`` (B, P, d) go before the tokens, and S
+    counts them (P + the text's length).
     ``remat`` checkpoints each layer when autograd records (training)."""
     check_ported(cfg)
-    x = embed_tokens(params, cfg, tokens)
-    B, S = tokens.shape
+    x = embed_tokens(params, cfg, tokens, patch_embeds)
+    B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)
     prefill = prefill_cache_len > 0
     remat = remat and torch.is_grad_enabled() and not prefill

@@ -1302,3 +1302,69 @@ def test_mla_and_encdec_protocols_init_and_train_on_card(cuda, arch):
     assert [f.launches for f in wrappers] == before
     assert np.isfinite(rec.scores).all() and np.isfinite(rec.losses).all()
     proto.finalize()
+
+
+def _vlm_grads(cfg, p, batch):
+    from repro_torch.models import api
+    pr = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+    loss, _ = api.lm_loss_fn(cfg, kv_chunk=16)(pr, batch)
+    g = torch.autograd.grad(loss, list(pr.values()))
+    return float(loss.detach()), {k: x.float().cpu() for k, x in zip(pr, g)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vlm_serve_and_loss_gradient_match_cpu_on_card(cuda, dtype):
+    """chameleon-34b's smoke config (16 patches before the prompt) on the
+    card against the CPU from the same weights: ``serve`` (a 24-token
+    prompt, 4 greedy tokens; the patches drawn on the CPU from the seed)
+    within 1e-4 (f32) or the serve parity's bf16 0.125, the tokens equal
+    up to a near tie; the loss within 1e-4 / 2e-3 and every leaf's
+    gradient within 2e-4 / 5e-2 of its largest value, in bf16 plus the
+    CPU's own bf16-vs-f32 gap of that leaf (the CPU sums repeated tokens'
+    embedding rows in bf16). No kernel launches."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+    cfg32 = get_smoke_config("chameleon-34b").replace(dtype="float32")
+    cfg = cfg32.replace(dtype=dtype)
+    p32 = api.init(cfg32, torch.Generator().manual_seed(0),
+                   torch.device("cpu"))
+    p = {k: v.to(getattr(torch, dtype)) for k, v in p32.items()}
+    tol = {"float32": (1e-4, 1e-4, 2e-4),
+           "bfloat16": (0.125, 2e-3, 5e-2)}[dtype]
+    wrappers = (trust_score.trust_score_stats, trust_agg.trust_agg,
+                fused_round.fused_async_agg, swa_decode.swa_decode,
+                ssd_scan.ssd_scan)
+    before = [f.launches for f in wrappers]
+    kw = dict(batch=2, prompt_len=24, gen=4, seed=3)
+    card = serve(cfg, device=cuda,
+                 params={k: v.to(cuda) for k, v in p.items()}, **kw)
+    cpu = serve(cfg, device="cpu", params=p, **kw)
+    lg, want = card.logits.float().cpu(), cpu.logits.float()
+    same = (card.tokens.cpu() == cpu.tokens).all(dim=0)
+    upto = int(same.float().argmin()) if not same.all() else 4
+    if upto < 4:
+        top2 = want[:, upto].topk(2, dim=-1).values
+        assert float((top2[:, 0] - top2[:, 1]).min()) <= 2 * tol[0]
+    assert torch.isfinite(lg).all()
+    assert (lg - want)[:, :upto + 1].abs().max() <= tol[0]
+
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, 512, (1, 48)))
+    pe = torch.from_numpy(rng.standard_normal((1, 16, 256)).astype(
+        np.float32))
+    batch = {"tokens": toks, "labels": toks, "patch_embeds": pe}
+    loss, g = _vlm_grads(cfg, {k: v.to(cuda) for k, v in p.items()},
+                         {k: v.to(cuda) for k, v in batch.items()})
+    want_loss, want_g = _vlm_grads(cfg, p, batch)
+    _, g32 = _vlm_grads(cfg32, p32, batch)
+    assert np.isfinite(loss) and abs(loss - want_loss) <= tol[1]
+    for k in g:
+        scale = want_g[k].abs().max().clamp_min(1e-30)
+        gap = 0.0 if dtype == "float32" else float(
+            (want_g[k] - g32[k]).abs().max() / scale)
+        assert float((g[k] - want_g[k]).abs().max() / scale) <= \
+            tol[2] + gap, k
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == before

@@ -52,7 +52,8 @@ VERBATIM = {
     "configs/smollm_135m.py": (), "configs/yi_6b.py": (),
     "configs/qwen2_moe_a2_7b.py": (), "configs/olmoe_1b_7b.py": (),
     "configs/xlstm_1_3b.py": (), "configs/minicpm3_4b.py": (),
-    "configs/whisper_base.py": (),
+    "configs/whisper_base.py": (), "configs/chameleon_34b.py": (),
+    "configs/registry.py": (),
     "data/datasets.py": (), "chain/contract.py": (), "chain/proofs.py": (),
     "chain/ledger.py": (847,),
     "core/async_sim.py": (), "core/reputation.py": (),
@@ -91,7 +92,8 @@ def test_protocol_imports_with_jax_and_repro_blocked():
             "repro_torch.examples.poisoning_defense, "
             "repro_torch.examples.decentralized_network, "
             "repro_torch.examples.federated_llm, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.configs.registry as R; "
+            "[R.get_config(a) for a in R.ARCH_IDS + ['paper-net']]; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),

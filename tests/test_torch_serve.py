@@ -362,10 +362,12 @@ def test_serve_cli_prints_the_reference_lines(capsys):
     assert out[3].startswith("sample token ids:")
 
 
-def test_registry_holds_only_ported_archs():
-    assert ARCH_IDS == [ARCH, "minicpm3-4b", "olmoe-1b-7b",
-                        "qwen2-moe-a2.7b", "smollm-135m", "whisper-base",
-                        "xlstm-1.3b", "yi-6b", "zamba2-7b"]
+def test_registry_holds_only_ported_archs(jref):
+    """Every arch of the reference is ported: the port's ``ARCH_IDS`` is
+    the reference's, in its order, and an unknown arch raises."""
+    from repro.configs.registry import ARCH_IDS as JARCH_IDS
+    assert ARCH_IDS == JARCH_IDS and len(ARCH_IDS) == 10
+    assert ARCH in ARCH_IDS and "paper-net" not in ARCH_IDS
     full = get_config(ARCH)
     assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
             full.resolved_head_dim, full.window) == (24, 2560, 32, 8, 80,
@@ -377,7 +379,7 @@ def test_registry_holds_only_ported_archs():
     assert (yi.num_layers, yi.d_model, yi.num_kv_heads, yi.rope_theta,
             yi.window) == (32, 4096, 4, 5_000_000.0, 0)
     with pytest.raises(KeyError):
-        get_config("chameleon-34b")
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
