@@ -321,6 +321,22 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   the floor (the weights and the whole K/V cache read once
                   a step), peak memory, four decode steps under
                   torch.profiler; no kernel launches
+  dryrun          the dry run (``repro_torch.launch.dryrun``) held to the
+                  card: ``HBM_BYTES`` within 1 % of the card's memory;
+                  each kernel case on fake tensors gives its launch's
+                  output shapes, dtypes and strides and launches nothing,
+                  the wide path's scratch layouts equal the library's;
+                  six steps earlier phases measured (``dryrun_setups``:
+                  the chameleon prefill and decode, ``llm_round``'s flat
+                  sync and async rounds, ``moe_round``'s and
+                  ``xlstm_round``'s first sync round), traced from the
+                  build on in a niced background process with the card
+                  hidden (``--dryrun-traces``; meta tensors), two of them
+                  again here on fake CUDA tensors with equal counts; each
+                  predicted peak plus what the card held beside the step's
+                  arguments within max(5 %, 0.5 GiB) of the step's
+                  ``max_memory_allocated``, each measured wall at least
+                  its trace's max(compute_s, memory_s), the ratio printed
 The last five, ``dense_serve`` and ``moe_serve`` report the device memory
 held when they start, before and after the cycle collector runs
 (``memory_before_release``, ``memory_held_at_start``).
@@ -2451,11 +2467,17 @@ def _round_run(cfg, fresh, workers, async_mode, rounds, seed=0,
         if frames is not None:
             data["frames"] = frames(r)
         reset_counts()
+        if r == 0:
+            step = _step_begin([proto.task.global_params,
+                                proto.task.opt_state])
         torch.cuda.synchronize()
         t0 = time.monotonic()
         out = proto.run_round(data, participation=part)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+        if r == 0:
+            window_max = _step_end(
+                f"{phase}_{'async' if async_mode else 'sync'}", step)
         counts = read_counts()
         check(all(counts[k] >= 1 for k in kernels)
               and all(counts[k] == 0 for k in counts if k not in kernels),
@@ -2472,7 +2494,8 @@ def _round_run(cfg, fresh, workers, async_mode, rounds, seed=0,
         if r == 0:
             first = ({k: v.cpu() for k, v in proto.global_params.items()},
                      np.array(out.scores))
-    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    rec["max_memory_allocated"] = max(window_max,
+                                      torch.cuda.max_memory_allocated())
     after = (_heldout_loss(cfg, proto.global_params, heldout, dev),
              _heldout_loss(cfg, proto.global_params, fresh, dev))
     rec["heldout_loss"] = [before[0], after[0]]
@@ -2958,16 +2981,19 @@ def phase_llm_round(name):
     leaf_scores, leaf_w = leaf.scores.cpu().numpy(), leaf.weights.cpu()
     leaf_s = time.monotonic() - t0
     del leaf
+    step = _step_begin([gp, opt, batch])
     t0 = time.monotonic()
     flat, upd = _capture_flat(flat_fn, gp, opt, batch)
     torch.cuda.synchronize()
     flat_s = time.monotonic() - t0
+    window_max = _step_end("llm_flat_sync", step)
     flat_counts = read_counts()
     _expect("llm_round flat sync", flat_counts, _trust_launches(1, 0))
     flat_scores = flat.scores.cpu().numpy()
     sync_flat = {
         "leaf_round_s": leaf_s, "flat_round_s": flat_s,
-        "round_max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "round_max_memory_allocated": max(
+            window_max, torch.cuda.max_memory_allocated()),
         "score_diff": float(np.abs(flat_scores - leaf_scores).max()),
         "weight_diff": float((flat.weights.cpu() - leaf_w).abs().max()),
         "decisions_equal": _settle_decisions(fed, [flat_scores], 8)
@@ -3015,11 +3041,13 @@ def phase_llm_round(name):
     leaf_pending = pack.pack_stack(leaf_new.pending, spec, torch.float32)
     del leaf, leaf_new, st
     task.async_state = None
+    step = _step_begin([gp, opt, batch, part, flat_st])
     t0 = time.monotonic()
     (flat, flat_new), upd = _capture_flat(flat_fn, gp, opt, batch, None,
                                           part, flat_st)
     torch.cuda.synchronize()
     flat_s = time.monotonic() - t0
+    _step_end("llm_flat_async", step)
     counts = read_counts()
     _expect("llm_round flat async", counts, _trust_launches(0, 1))
     for k in counts:
@@ -4516,9 +4544,13 @@ def phase_vlm_serve(name):
             (B, Pt, cfg.d_model),
             generator=torch.Generator().manual_seed(2)).to(dev, dt)}
     with torch.inference_mode():
+        step = _step_begin([params, inputs])
         logits, cache = api.prefill(params, cfg, inputs, Pt + P + G)
+        _step_end("vlm_prefill", step)
         tok = logits[:, -1].float().argmax(-1, keepdim=True)
+        step = _step_begin([params, cache, tok])
         api.decode_step(params, cfg, cache, tok, Pt + P)       # warm
+        _step_end("vlm_decode", step)
         torch.cuda.synchronize()
         prof = profile(activities=[ProfilerActivity.CUDA])
         prof.start()
@@ -4552,6 +4584,321 @@ def phase_vlm_serve(name):
     emit(out)
 
 
+# -- the dry run held against the card -----------------------------------
+
+# a predicted peak (the trace's, plus what the card held beside the step's
+# arguments) against the measured one: within the larger of these
+DRYRUN_PEAK_REL = 0.05
+DRYRUN_PEAK_ABS = 0.5 * 2**30
+DRYRUN_WAIT_S = 900              # the background traces' limit at the phase
+DRYRUN_STEPS = {}                # the measured steps the dry run re-traces
+
+
+def _storage_bytes(tree):
+    """The device bytes of the tensors in ``tree`` (dicts, lists, tuples),
+    each storage once, in the caching allocator's 512-byte blocks."""
+    from repro_torch.launch import dryrun
+    seen = {}
+    for t in dryrun._tensors(tree, []):
+        s = t.untyped_storage()
+        seen[s.data_ptr()] = -(-s.nbytes() // dryrun.BLOCK) * dryrun.BLOCK
+    return sum(seen.values())
+
+
+def _step_begin(args):
+    """Before a step that the ``dryrun`` phase re-traces: the bytes
+    allocated, those of the step's arguments ``args``, and the peak so far;
+    then the peak counter restarts."""
+    torch.cuda.synchronize()
+    rec = {"allocated_before": torch.cuda.memory_allocated(),
+           "args_bytes": _storage_bytes(args),
+           "max_before": torch.cuda.max_memory_allocated()}
+    torch.cuda.reset_peak_memory_stats()
+    rec["t0"] = time.monotonic()
+    return rec
+
+
+def _step_end(key, rec):
+    """After the step: its wall and its peak, kept as ``DRYRUN_STEPS[key]``
+    (the first time). Returns the peak of the window before the step and
+    the step together, the figure the phase's own peak keeps reading."""
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.monotonic() - rec.pop("t0")
+    rec["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    DRYRUN_STEPS.setdefault(key, rec)
+    return max(rec["max_before"], rec["max_memory_allocated"])
+
+
+def dryrun_setups():
+    """The steps earlier phases measured, as ``dryrun.run_one`` re-traces
+    them: {key: (arch, registry shape, setup_override)}. ``vlm_serve``'s
+    chameleon-34b prefill and warm decode (batch 4, 256 patches and a
+    1792-token prompt, 2080 cache slots), ``llm_round``'s flat-pack sync
+    and async rounds (smollm-135m, W = 8: K1 with K2, K1 with K3) and the
+    first sync round of ``moe_round`` (olmoe-1b-7b, one layer) and of
+    ``xlstm_round`` (xlstm-1.3b, one super-layer: K4's wide path and its
+    backward)."""
+    from repro_torch.configs.base import FederationConfig, ShapeConfig, \
+        TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import specs
+    B, P, G = VLM_SERVE["batch"], VLM_SERVE["prompt_len"], VLM_SERVE["gen"]
+    vlm = get_config(VLM)
+    Pt = vlm.num_patch_tokens
+    tc = TrainConfig(optimizer="adamw", lr=3e-4, remat=True, grad_clip=1.0)
+
+    def round_setup(arch, cfg, fed, shape):
+        return (arch, "train_4k", lambda a, s, mesh, _, **kw:
+                specs.train_setup(a, s, mesh, fed, cfg=cfg, tc=tc,
+                                  shape=shape))
+
+    def llm_fed(async_mode):
+        return FederationConfig(num_clusters=2, workers_per_cluster=4,
+                                async_mode=async_mode, trust_threshold=0.3,
+                                mode="allreduce", fused_trust_path="on")
+    zfed = FederationConfig(num_clusters=ZROUND["clusters"],
+                            workers_per_cluster=ZROUND["workers"]
+                            // ZROUND["clusters"], trust_threshold=0.3,
+                            mode="allreduce")
+    zshape = ShapeConfig("round", ZROUND["seq"],
+                         ZROUND["workers"] * ZROUND["batch"], "train")
+    llm_shape = ShapeConfig("llm_round", 128, 8 * 32, "train")
+    return {
+        "vlm_prefill": (VLM, "prefill_32k", lambda a, s, mesh, _, **kw:
+                        specs.prefill_setup(
+                            a, s, mesh, cfg=vlm, cache_len=Pt + P + G,
+                            shape=ShapeConfig("vlm_prefill", Pt + P, B,
+                                              "prefill"))),
+        "vlm_decode": (VLM, "decode_32k", lambda a, s, mesh, _, **kw:
+                       specs.decode_setup(
+                           a, s, mesh, cfg=vlm, cur_index=Pt + P,
+                           shape=ShapeConfig("vlm_decode", Pt + P + G, B,
+                                             "decode"))),
+        "llm_flat_sync": round_setup(LLM, get_config(LLM), llm_fed(False),
+                                     llm_shape),
+        "llm_flat_async": round_setup(LLM, get_config(LLM), llm_fed(True),
+                                      llm_shape),
+        "moe_round_sync": round_setup(
+            MOE_ROUND_ARCH,
+            get_config(MOE_ROUND_ARCH).replace(**MOE_ROUND_CUTS), zfed,
+            zshape),
+        "xlstm_round_sync": round_setup(
+            XLSTM, get_config(XLSTM).replace(**XPARITY_CUTS), zfed, zshape),
+    }
+
+
+def dryrun_traces(path):
+    """``chip_smoke.py --dryrun-traces PATH``: each of ``dryrun_setups``
+    traced once (``dryrun.run_one``), the results written to PATH as they
+    come. ``_start_dryrun_traces`` runs it in a process of its own with the
+    card hidden, so its fake tensors lie on the meta device, which stands in
+    for the card as it does on a host without one."""
+    from repro_torch.launch import dryrun
+    t0 = time.monotonic()
+    out = {}
+    for key, (arch, shape, setup) in dryrun_setups().items():
+        out[key] = dryrun.run_one(arch, shape, setup_override=setup)
+        out[key]["done_after_s"] = time.monotonic() - t0
+        with open(path, "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+def _start_dryrun_traces():
+    """Start ``dryrun_traces`` in the background at the lowest CPU
+    priority (the traces take minutes of one core on the host, the card
+    none), while the earlier phases run. Returns (process, results
+    path); the process is stopped at exit if it still runs."""
+    import atexit
+    path = os.path.join(ROOT, "build", f"dryrun_traces-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dryrun-traces", path],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        preexec_fn=lambda: os.nice(19))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    atexit.register(stop)
+    return proc, path
+
+
+def _shapes(out):
+    """(shape, dtype, strides) of each output (None stays None)."""
+    outs = out if isinstance(out, tuple) else (out,)
+    return [None if x is None else
+            (tuple(x.shape), str(x.dtype), tuple(x.stride())) for x in outs]
+
+
+def _abstract_cases():
+    """One call of each kernel case the kernel phases time, on the card's
+    inputs: {name: (wrapper, real inputs)}."""
+    from repro_torch.kernels import fused_round, ssd_scan, swa_decode, \
+        trust_agg, trust_score
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    W, dt = MAIN_SHAPE[0], getattr(torch, MAIN_SHAPE[1])
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    u, w = rnd(W, D_PAPER, dtype=dt), rnd(W).abs()
+    sw = SWA_SHAPE
+    q = rnd(sw["B"], sw["H"], sw["hd"], dtype=torch.bfloat16)
+    kc = rnd(sw["B"], SWA_S, sw["KV"], sw["hd"], dtype=torch.bfloat16)
+
+    def k4(shape, dtype, per_head):
+        B, S, H, dk, dv = (shape[k] for k in ("B", "S", "H", "dk", "dv"))
+        if per_head:
+            qk = [rnd(B, S, H, dk, dtype=dtype) for _ in range(2)]
+        else:        # Mamba2's B and C: one row for every head
+            qk = [rnd(B, S, 1, dk, dtype=dtype).expand(B, S, H, dk)
+                  for _ in range(2)]
+        return qk + [rnd(B, S, H, dv, dtype=dtype), -rnd(B, S, H).abs(),
+                     rnd(B, S, H).abs()]
+
+    def bwd(shape, dtype, per_head, wide):
+        q, k, v, a, i = k4(shape, dtype, per_head)
+        c = shape["chunk"]
+        with torch.no_grad():
+            y, h, states = ssd_scan._launch_fwd(q, k, v, a, i, None, c, True)
+        dy = torch.randn_like(y)
+        return (lambda *x: ssd_scan.ssd_scan_bwd(
+            *x[:6], chunk=c, states=x[6], want_dh0=not wide),
+            [q, k, v, a, i, dy, states])
+    narrow, wide = SSD_SERVE, SSD_WIDE_SERVE
+    return {
+        "trust_score": (trust_score.trust_score_stats, [u]),
+        "trust_agg": (trust_agg.trust_agg, [u, w]),
+        "fused_async_agg": (fused_round.fused_async_agg,
+                            [u, rnd(W, D_PAPER), w, (w > 0.5).float()]),
+        "swa_decode": (lambda *x: swa_decode.swa_decode(
+            *x, SWA_MAIN_CUR, SWA_WINDOW), [q, kc, torch.randn_like(kc)]),
+        "ssd_scan": (lambda *x: ssd_scan._launch_fwd(
+            *x, None, narrow["chunk"], True),
+            k4(narrow, torch.bfloat16, False)),
+        "ssd_scan_wide": (lambda *x: ssd_scan._launch_fwd(
+            *x, None, wide["chunk"], False), k4(wide, torch.float32, True)),
+        "ssd_scan_bwd": bwd(SSD_TRAIN, torch.bfloat16, False, False),
+        "ssd_scan_bwd_wide": bwd(SSD_WIDE_TRAIN, torch.float32, True, True),
+    }
+
+
+def _abstract_checks():
+    """Each kernel case on the card's tensors and on fake copies of them:
+    the abstract branch's outputs have the real launch's shapes, dtypes and
+    strides, and the fake calls launch nothing; the wide path's scratch
+    layouts in Python equal the library's own count."""
+    from repro_torch.kernels import ssd_scan
+    from repro_torch.launch import specs
+    rows = {}
+    for key, (fn, args) in _abstract_cases().items():
+        with torch.no_grad():
+            real = _shapes(fn(*args))
+        torch.cuda.synchronize()
+        before = read_counts()
+        mode = specs.new_fake_mode()
+        with mode, torch.no_grad():
+            fake = _shapes(fn(*[mode.from_tensor(x) for x in args]))
+        moved = read_counts() != before
+        rows[key] = {"outputs": real, "abstract_equal": fake == real,
+                     "counters_moved": moved}
+        check(fake == real and not moved,
+              f"dryrun: {key}'s abstract branch {fake} != launch {real}"
+              f" or a counter moved")
+        del args
+    w, t = SSD_WIDE_SERVE, SSD_WIDE_TRAIN
+    dims = lambda d: (d["B"], d["S"], d["H"], d["dk"], d["dv"], d["chunk"])
+    layouts = {
+        "wide_fwd": (ssd_scan.wide_scratch_layout_bytes(*dims(w)),
+                     ssd_scan.wide_scratch_bytes(*dims(w)))}
+    for h0 in (False, True):
+        for dhf in (False, True):
+            layouts[f"wide_bwd_h0_{h0}_dhf_{dhf}"] = (
+                ssd_scan.wide_bwd_scratch_layout_bytes(
+                    *dims(t), initial_state=h0, dh_final=dhf),
+                ssd_scan.wide_bwd_scratch_bytes(
+                    *dims(t), initial_state=h0, dh_final=dhf))
+    check(all(a == b for a, b in layouts.values()),
+          f"dryrun: scratch layouts {layouts}")
+    return rows, layouts
+
+
+def phase_dryrun(name, child):
+    """The dry run held against the card. ``HBM_BYTES`` within 1 % of the
+    card's total memory; each kernel case's abstract branch against its
+    launch (``_abstract_checks``); the background traces of
+    ``dryrun_setups`` (meta stand-in), two of them traced again here on
+    fake CUDA tensors with equal counts; each predicted peak, plus what the
+    card held beside the step's arguments before it, within
+    max(DRYRUN_PEAK_REL, DRYRUN_PEAK_ABS) of the step's measured
+    ``max_memory_allocated``, and each measured wall at least
+    max(compute_s, memory_s) of its trace."""
+    from repro_torch.launch import dryrun, mesh
+    smi_line = smi("name,power.limit")
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {"phase": "dryrun", "card": smi_line,
+           "hbm_bytes": mesh.HBM_BYTES, "total_memory": total,
+           "peak_tol": {"rel": DRYRUN_PEAK_REL, "abs": DRYRUN_PEAK_ABS}}
+    check(abs(mesh.HBM_BYTES - total) <= 0.01 * total,
+          f"dryrun: HBM_BYTES {mesh.HBM_BYTES} against {total}")
+    out["abstract"], out["scratch_layouts"] = _abstract_checks()
+    proc, path = child
+    t0 = time.monotonic()
+    try:
+        text, _ = proc.communicate(timeout=DRYRUN_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        text, _ = proc.communicate()
+        raise AssertionError(f"dryrun: the background traces ran past "
+                             f"{DRYRUN_WAIT_S} s at the phase:\n{text}")
+    out["waited_for_traces_s"] = time.monotonic() - t0
+    check(proc.returncode == 0, f"dryrun: traces failed:\n{text}")
+    with open(path) as f:
+        traces = json.load(f)
+    out["traces_wall_s"] = max(r["done_after_s"] for r in traces.values())
+    setups = dryrun_setups()
+    check(set(traces) == set(setups), f"dryrun: traced {sorted(traces)}")
+    # the meta stand-in against fake CUDA tensors, on two setups
+    same = {}
+    for key in ("vlm_decode", "moe_round_sync"):
+        arch, shape, setup = setups[key]
+        cuda = dryrun.run_one(arch, shape, setup_override=setup)
+        fields = ("flops_bf16", "flops_f32", "bytes_per_device",
+                  "peak_bytes", "args_bytes", "kernels")
+        same[key] = {k: [cuda[k], traces[key][k]] for k in fields}
+        check(all(cuda[k] == traces[key][k] for k in fields),
+              f"dryrun: {key} on fake CUDA tensors {same[key]}")
+    out["cuda_equals_meta"] = same
+    steps = {}
+    for key, r in traces.items():
+        m = DRYRUN_STEPS[key]
+        held = m["allocated_before"] - m["args_bytes"]
+        predicted = r["peak_bytes"] + held
+        measured = m["max_memory_allocated"]
+        tol = max(DRYRUN_PEAK_REL * measured, DRYRUN_PEAK_ABS)
+        bound = max(r["compute_s"], r["memory_s"])
+        steps[key] = {
+            "predicted_peak": predicted, "measured_peak": measured,
+            "gap": predicted - measured,
+            "gap_share": (predicted - measured) / measured, "tol": tol,
+            "trace_peak": r["peak_bytes"], "trace_args": r["args_bytes"],
+            "card_args": m["args_bytes"], "held_beside_args": held,
+            "wall_s": m["wall_s"], "compute_s": r["compute_s"],
+            "memory_s": r["memory_s"], "dominant": r["dominant"],
+            "wall_over_bound": m["wall_s"] / bound,
+            "flops_bf16": r["flops_bf16"], "flops_f32": r["flops_f32"],
+            "bytes": r["bytes_per_device"], "kernels": r["kernels"],
+            "aten_calls": r["aten_calls"], "lower_s": r["lower_s"]}
+    out["steps"] = steps
+    emit(out)
+    bad = {k: v for k, v in steps.items()
+           if abs(v["gap"]) > v["tol"] or v["wall_over_bound"] < 1}
+    check(not bad, f"dryrun: peaks or walls off: {bad}")
+
+
 def _timed(walls, phase, fn, *args):
     """``fn(*args)``, its wall seconds kept in ``walls[phase]``."""
     t0 = time.monotonic()
@@ -4574,6 +4921,7 @@ def main():
         return _timed(walls, phase, fn, *args)
     name, smi_line = run("device", phase_device)
     run("build", phase_build)
+    dry_child = _start_dryrun_traces()
     table = run("kernels", phase_kernels, name)
     run("parity", phase_parity)
     launches = {k: 0 for k in counters()}
@@ -4630,6 +4978,7 @@ def main():
     run("whisper_serve", phase_whisper_serve, name)
     run("whisper_round", phase_whisper_round, name)
     run("vlm_serve", phase_vlm_serve, name)
+    run("dryrun", phase_dryrun, name, dry_child)
     for counts in new_paths:
         for k in ("trust_score", "trust_agg", "fused_async_agg"):
             launches[k] += counts[k]
@@ -4761,4 +5110,6 @@ def control_main(fault):
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--xlstm-grad-control"]:
         sys.exit(control_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--dryrun-traces"]:
+        sys.exit(dryrun_traces(sys.argv[2]))
     sys.exit(main())

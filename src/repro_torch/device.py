@@ -11,7 +11,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """The device an entry point runs on: ``cuda`` unless the caller asks
     for another one (the tests pass ``"cpu"``). Without a CUDA device and
     without an explicit request this raises: the port never carries on
-    silently on the CPU.
+    silently on the CPU. While a ``FakeTensorMode`` is active (the dry run,
+    ``repro_torch.launch.dryrun``, traces ``cuda`` steps on fake tensors,
+    which allocate nothing) it returns ``cuda`` without a card; outside
+    one, on a host with no card, it still raises.
 
     On a CUDA device it also fixes the numerics of the round (process-wide
     PyTorch switches): TF32 off for cuDNN convolutions and cuBLAS matmuls
@@ -23,7 +26,7 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
-        if not torch.cuda.is_available():
+        if not torch.cuda.is_available() and not fake_mode_active():
             raise RuntimeError(
                 "no CUDA device: pass device='cpu' to run the port on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -33,3 +36,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         torch.backends.cudnn.deterministic = True
         torch.backends.cudnn.benchmark = False
     return dev
+
+
+def fake_mode_active() -> bool:
+    """Whether a ``torch._subclasses.FakeTensorMode`` is active."""
+    return torch._C._get_dispatch_mode(
+        torch._C._TorchDispatchModeKey.FAKE) is not None

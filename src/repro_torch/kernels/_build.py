@@ -12,6 +12,10 @@ repository's sources and the CUDA toolkit goes into the build.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; ``launch`` raises on a non-zero code. Nothing here
 runs at import time: the CPU tests import every module of the package.
+
+Every wrapper has an abstract branch (``abstract``) for fake tensors, the
+dry run's (``repro_torch.launch.dryrun``): there it neither builds, loads
+nor launches anything.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
@@ -180,8 +185,9 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def check_updates(updates: torch.Tensor) -> None:
-    """The (W, D) update matrix every trust kernel takes."""
-    if updates.device.type not in ("cpu", "cuda"):
+    """The (W, D) update matrix every trust kernel takes (the meta device
+    stands in for the card in the dry run on a build without CUDA)."""
+    if updates.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"updates on unsupported device {updates.device}")
     if updates.dtype not in KERNEL_DTYPES:
         raise TypeError(f"updates dtype {updates.dtype}: the kernels take "
@@ -189,7 +195,7 @@ def check_updates(updates: torch.Tensor) -> None:
     if updates.ndim != 2 or updates.shape[0] < 1 or updates.shape[1] < 1:
         raise ValueError(f"updates must be a non-empty (W, D) matrix, got "
                          f"shape {tuple(updates.shape)}")
-    if updates.device.type == "cuda" and not updates.is_contiguous():
+    if updates.device.type != "cpu" and not updates.is_contiguous():
         raise ValueError("updates must be contiguous")
 
 
@@ -217,11 +223,20 @@ def check_operand(x: torch.Tensor, name: str, shape: tuple,
         raise ValueError(f"{name} on {x.device}, updates on {like.device}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(x.shape)} != {tuple(shape)}")
-    if x.device.type == "cuda":
+    if x.device.type != "cpu":
         if x.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def aligned16(x: torch.Tensor) -> bool:
+    """Whether x's first element lies on a 16-byte boundary. A fake tensor
+    has no address: its offset into its storage decides (the caching
+    allocator hands out storages on 512-byte boundaries)."""
+    if isinstance(x, FakeTensor):
+        return x.storage_offset() * x.element_size() % 16 == 0
+    return x.data_ptr() % 16 == 0
 
 
 def ptr(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -230,8 +245,9 @@ def ptr(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
 
 
 def device_of(x: torch.Tensor) -> torch.device:
-    """x's CUDA device with its index."""
-    return x.device if x.device.index is not None else \
+    """x's CUDA device with its index (a meta tensor's device as it is)."""
+    return x.device if x.device.index is not None or \
+        x.device.type != "cuda" else \
         torch.device("cuda", torch.cuda.current_device())
 
 
@@ -256,3 +272,42 @@ def scratch(kernel: str, device: torch.device, counters: int, floats: int):
                            device=device)
     _scratch[key] = (cnt, part)
     return cnt, part
+
+
+def scratch_bytes(counters: int, floats: int) -> int:
+    """Bytes of the scratch ``scratch`` allocates for a launch that needs
+    ``counters`` arrival counters and ``floats`` f32 partial sums."""
+    return 4 * max(counters, 1024) + 4 * max(floats, 1 << 18)
+
+
+# -- the dry run's abstract branch ---------------------------------------------
+
+def is_fake(x: torch.Tensor) -> bool:
+    """Whether x is a fake tensor (the dry run's), which takes a wrapper's
+    abstract branch."""
+    return isinstance(x, FakeTensor)
+
+
+def abstract(kernel: str, x: torch.Tensor, *, flops: int, nbytes: int,
+             scratch: int = 0, tensor_cores: bool = False) -> None:
+    """The abstract branch of a kernel wrapper, for a fake tensor ``x``:
+    the dry run traces a step on fake tensors, which allocate nothing. It
+    holds a fake tensor of ``scratch`` bytes on x's device while the call
+    lasts, as the launch holds its scratch, and adds the kernel's
+    ``flops`` (on the tensor cores, or on the ordinary f32 cores) and
+    ``nbytes`` of HBM traffic to the innermost dry-run counter. The wrapper
+    then returns the outputs it made with ``torch.empty``, of the real
+    launch's shapes, dtypes and strides. Nothing is built, loaded or
+    launched, and no launch counter moves. The counter is the innermost
+    active dispatch mode that counts kernels (``launch.dryrun.Counter``),
+    if any."""
+    from torch.utils._python_dispatch import \
+        _get_current_dispatch_mode_stack
+    assert is_fake(x)
+    held = torch.empty(scratch, dtype=torch.uint8, device=x.device) \
+        if scratch else None
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        if hasattr(mode, "kernel"):
+            mode.kernel(kernel, flops, nbytes, tensor_cores)
+            break
+    del held

@@ -107,8 +107,9 @@ def fused_async_agg(updates: torch.Tensor, pending: torch.Tensor,
     float32, a new buffer) in one pass over the update matrix, summed over
     W in a fixed order. On CUDA tensors this launches the kernel (counted
     in ``.launches``; with more than one row split it uses a small scratch
-    kept per device and stream, ``_build.scratch``); on CPU tensors it
-    returns the plain version."""
+    kept per device and stream, ``_build.scratch``; on fake tensors the
+    abstract branch, ``_build.abstract``); on CPU tensors it returns the
+    plain version."""
     _build.check_updates(updates)
     W, D = updates.shape
     _build.check_operand(pending, "pending", (W, D), updates)
@@ -119,15 +120,22 @@ def fused_async_agg(updates: torch.Tensor, pending: torch.Tensor,
     _build.check_no_grad("fused_async_agg", updates, pending, weights,
                          keep)
     p = plan(W, D, updates.element_size(),
-             updates.data_ptr() % 16 == 0 and pending.data_ptr() % 16 == 0)
+             _build.aligned16(updates) and _build.aligned16(pending))
     dev = _build.device_of(updates)
+    f32 = dict(dtype=torch.float32, device=dev)
+    agg = torch.empty((D,), **f32)
+    new_pending = torch.empty((W, D), **f32)
+    if _build.is_fake(updates):
+        _build.abstract("fused_async_agg", updates, flops=flops(W, D),
+                        nbytes=hbm_bytes(W, D, updates.element_size())[
+                            "total"],
+                        scratch=_build.scratch_bytes(p.tiles, p.splits * D)
+                        if p.splits > 1 else 0)
+        return agg, new_pending
     cnt = part = None            # one split writes agg directly
     if p.splits > 1:
         cnt, part = _build.scratch("fused_async_agg", dev, p.tiles,
                                    p.splits * D)
-    f32 = dict(dtype=torch.float32, device=dev)
-    agg = torch.empty((D,), **f32)
-    new_pending = torch.empty((W, D), **f32)
     _build.launch("repro_fused_async_agg", dev, _build.ptr(updates),
                   int(updates.dtype == torch.bfloat16), _build.ptr(pending),
                   _build.ptr(weights), _build.ptr(keep), W, D, p.vec,
@@ -152,6 +160,12 @@ def hbm_bytes(W: int, D: int, itemsize: int) -> dict:
     least = 2 * W * D * 4 + 2 * W * 4 + D * 4
     return {"update_read": upd, "other": least + partials,
             "total": upd + least + partials, "minimum": upd + least}
+
+
+def flops(W: int, D: int) -> int:
+    """Flops of one K3 call: total = pending + u and new pending = total ·
+    keep (W D each), the weighted sum (2 W D)."""
+    return 4 * W * D
 
 
 def streamed_bytes(W: int, D: int, dtype: torch.dtype, *,

@@ -352,6 +352,46 @@ def wide_bwd_scratch_bytes(B: int, S: int, H: int, dk: int, dv: int,
     return out.value
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def wide_scratch_layout_bytes(B: int, S: int, H: int, dk: int, dv: int,
+                              chunk: int) -> int:
+    """``wide_scratch_bytes`` without the library: the same count from the
+    layout in ``csrc/ssd_scan_wide.cu`` (``Layout``), for the dry run's
+    abstract branch, which builds nothing. Three parts of q, k and v, two
+    of the states, the gated scores and w·v; rows padded to 8."""
+    bh, nc, Q = B * H, S // chunk, chunk
+    bhn = bh * nc
+    dkp, dvp = _round_up(dk, 8), _round_up(dv, 8)
+    total = 2 * bhn * 2 * dk * dvp + 2 * bhn * 2 * Q * _round_up(Q, 8)
+    total += 2 * bh * 3 * S * (2 * dkp + dvp) + 2 * bh * 2 * S * dvp
+    total += _round_up(4 * bh * S, 16)
+    return total + _round_up(12 * bhn * -(-Q // 32), 16)
+
+
+def wide_bwd_scratch_layout_bytes(B: int, S: int, H: int, dk: int, dv: int,
+                                  chunk: int, *, initial_state: bool = True,
+                                  dh_final: bool = True) -> int:
+    """``wide_bwd_scratch_bytes`` without the library: the same count from
+    the layout in ``csrc/ssd_scan_wide_bwd.cu`` (``Layout``)."""
+    bh, nc, Q = B * H, S // chunk, chunk
+    bhn = bh * nc
+    dkp, dvp, Qp = _round_up(dk, 8), _round_up(dv, 8), _round_up(Q, 8)
+    nh = nc - (0 if initial_state else 1)
+    ng = nc - (0 if dh_final else 1)
+    ntt, ndt, net = -(-Q // 128), -(-dk // 128), -(-dv // 128)
+
+    def f32(n):
+        return _round_up(4 * n, 16)
+    total = 2 * bh * 3 * S * (2 * dkp + 2 * dvp) + 2 * bh * 2 * S * dkp
+    total += 2 * bh * (nh + ng) * 2 * dk * dvp + 2 * 2 * bhn * 2 * Q * Qp
+    total += f32(bh * S) + f32(bhn * -(-Q // 32) * 4)
+    total += 2 * f32(bhn * ntt * Q) + 2 * f32(bhn * ndt * Q)
+    return total + f32(bhn * ndt * net)
+
+
 def _launch_fwd(q, k, v, a, i, h0, chunk: int, with_states: bool):
     """One K4 call on the card → (y, final state, and the state before each
     chunk (B, nc, H, dk, dv) f32 when ``with_states``, else None): the
@@ -366,11 +406,24 @@ def _launch_fwd(q, k, v, a, i, h0, chunk: int, with_states: bool):
     h0 = None if h0 is None else h0.detach().to(f32).contiguous()
     y = torch.empty((B, S, H, dv), dtype=v.dtype, device=dev)
     h = torch.empty((B, H, dk, dv), dtype=f32, device=dev)
-    ptrs = [_build.ptr(x) for x in (q, k, v, a32, i32, h0)]
-    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     states = torch.empty((B, S // chunk, H, dk, dv), dtype=f32,
                          device=dev) if with_states else None
-    if is_wide(dk, dv, chunk):
+    wide = is_wide(dk, dv, chunk)
+    if _build.is_fake(q):
+        held = wide_scratch_layout_bytes(B, S, H, dk, dv, chunk) \
+            if wide else 0
+        least = hbm_bytes(B, S, H, dk, dv, v.element_size(),
+                          qk_per_head=q.stride(2) != 0,
+                          qk_itemsize=q.element_size())["minimum"]
+        _build.abstract(
+            "ssd_scan", q, flops=flops(B, S, H, dk, dv, chunk),
+            nbytes=total_bytes(least, scratch=held, saved=0 if states is None
+                               else states.numel() * 4),
+            scratch=held, tensor_cores=True)
+        return y, h, states
+    ptrs = [_build.ptr(x) for x in (q, k, v, a32, i32, h0)]
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    if wide:
         # the bf16 parts of q, k, v, w·v, the gated scores and the state
         # before every chunk, which the three launches pass on
         nbytes = wide_scratch_bytes(B, S, H, dk, dv, chunk)
@@ -629,6 +682,25 @@ def ssd_scan_bwd(q, k, v, a, i, dy, dh_final=None, *, chunk: int,
     # always has one; the wide backward writes dh0 only where asked for
     dh0 = torch.empty((B, H, dk, dv), dtype=f32, device=dev) \
         if want_dh0 or not wide else None
+    if _build.is_fake(q):
+        has_h0 = initial_state is not None
+        held = wide_bwd_scratch_layout_bytes(
+            B, S, H, dk, dv, chunk, initial_state=has_h0,
+            dh_final=dhf is not None) if wide else 0
+        # the wide backward skips the products of states known to be zero
+        # and of a dh0 not asked for; the narrow one computes them all
+        known = dict(initial_state=has_h0, dh_final=dhf is not None,
+                     dh0=want_dh0) if wide else {}
+        least = bwd_hbm_bytes(B, S, H, dk, dv, chunk, v.element_size(),
+                              qk_per_head=q.stride(2) != 0,
+                              qk_itemsize=q.element_size(),
+                              **known)["minimum"]
+        _build.abstract(
+            "ssd_scan_bwd", q,
+            flops=bwd_flops(B, S, H, dk, dv, chunk, **known),
+            nbytes=total_bytes(least, scratch=held), scratch=held,
+            tensor_cores=True)
+        return dq, dk_, dv_, da, di, dh0 if want_dh0 else None
     ins = [_build.ptr(x) for x in (q, k, v, a32, i32, states, dy, dhf)]
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     outs = [_build.ptr(x) for x in (dq, dk_, dv_, da, di, dh0)]
@@ -676,6 +748,15 @@ def hbm_bytes(B: int, S: int, H: int, dk: int, dv: int, itemsize: int, *,
     state = B * H * dk * dv * 4
     return {"qk": qk, "v_y": vy, "gates": gates, "state": state,
             "minimum": qk + vy + gates + state}
+
+
+def total_bytes(minimum: int, *, saved: int = 0, scratch: int = 0) -> int:
+    """The HBM bytes a call moves in all (the dry run's count): the
+    ``minimum`` of ``hbm_bytes`` or ``bwd_hbm_bytes``, the ``saved`` bytes
+    of f32 states before the chunks that a forward under grad writes for
+    its backward, and the wide path's ``scratch`` written once and read
+    once."""
+    return minimum + saved + 2 * scratch
 
 
 def flops(B: int, S: int, H: int, dk: int, dv: int, chunk: int) -> int:

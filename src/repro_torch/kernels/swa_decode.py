@@ -112,7 +112,7 @@ def _check_card(q, k_cache, v_cache):
         raise ValueError(f"cache strides {k_cache.stride()} / "
                          f"{v_cache.stride()}: both the same, rows "
                          f"contiguous, 16-byte multiples")
-    if any(x.data_ptr() % 16 for x in (q, k_cache, v_cache)):
+    if not all(_build.aligned16(x) for x in (q, k_cache, v_cache)):
         raise ValueError("q and the caches must be 16-byte aligned")
 
 
@@ -126,7 +126,8 @@ def swa_decode(q: torch.Tensor, k_cache: torch.Tensor,
     kernel (counted in ``.launches``); on CPU tensors it returns the plain
     version. The kernel's small scratch for more than one chunk (their
     partials and arrival counters) is kept per device and stream
-    (``_build.scratch``)."""
+    (``_build.scratch``). On fake tensors it takes the abstract branch
+    (``_build.abstract``)."""
     cur_index, window = int(cur_index), int(window)
     _check(q, k_cache, v_cache, cur_index, window)
     if q.device.type == "cpu":
@@ -139,11 +140,18 @@ def swa_decode(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     sb, ss, sh, _ = k_cache.stride()
     dev = _build.device_of(q)
+    floats = B * KV * p.nchunks * partial_floats(H // KV, hd)
+    if _build.is_fake(q):
+        _build.abstract("swa_decode", q,
+                        flops=flops(B, H, hd, window, cur_index),
+                        nbytes=hbm_bytes(B, H, KV, hd, window, cur_index,
+                                         q.element_size())["total"],
+                        scratch=_build.scratch_bytes(B * KV, floats)
+                        if p.nchunks > 1 else 0, tensor_cores=True)
+        return out
     cnt = part = None            # one chunk writes out directly
     if p.nchunks > 1:
-        cnt, part = _build.scratch(
-            "swa_decode", dev, B * KV,
-            B * KV * p.nchunks * partial_floats(H // KV, hd))
+        cnt, part = _build.scratch("swa_decode", dev, B * KV, floats)
     _build.launch("repro_swa_decode", dev, _build.ptr(q),
                   _build.ptr(k_cache), _build.ptr(v_cache),
                   int(q.dtype == torch.bfloat16), B, H, KV, hd, sb, ss, sh,

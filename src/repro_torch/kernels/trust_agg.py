@@ -53,20 +53,28 @@ def trust_agg(updates: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """updates (W, D) float32 or bfloat16, weights (W,) float32 → (D,)
     float32, summed over W in a fixed order. On a CUDA tensor this launches
     the kernel (counted in ``.launches``; with more than one row split it
-    uses a small scratch kept per device and stream, ``_build.scratch``); on
-    a CPU tensor it returns the plain version."""
+    uses a small scratch kept per device and stream, ``_build.scratch``; on
+    a fake tensor the abstract branch, ``_build.abstract``); on a CPU
+    tensor it returns the plain version."""
     _build.check_updates(updates)
     W, D = updates.shape
     _build.check_operand(weights, "weights", (W,), updates)
     if updates.device.type == "cpu":
         return trust_agg_ref(updates, weights)
     _build.check_no_grad("trust_agg", updates, weights)
-    p = plan(W, D, updates.element_size(), updates.data_ptr() % 16 == 0)
+    p = plan(W, D, updates.element_size(), _build.aligned16(updates))
     dev = _build.device_of(updates)
+    out = torch.empty((D,), dtype=torch.float32, device=dev)
+    if _build.is_fake(updates):
+        _build.abstract("trust_agg", updates, flops=flops(W, D),
+                        nbytes=hbm_bytes(W, D, updates.element_size())[
+                            "total"],
+                        scratch=_build.scratch_bytes(p.tiles, p.splits * D)
+                        if p.splits > 1 else 0)
+        return out
     cnt = part = None            # one split writes out directly
     if p.splits > 1:
         cnt, part = _build.scratch("trust_agg", dev, p.tiles, p.splits * D)
-    out = torch.empty((D,), dtype=torch.float32, device=dev)
     _build.launch("repro_trust_agg", dev, _build.ptr(updates),
                   int(updates.dtype == torch.bfloat16), _build.ptr(weights),
                   W, D, p.vec, p.splits, _build.ptr(cnt),
@@ -89,3 +97,8 @@ def hbm_bytes(W: int, D: int, itemsize: int) -> dict:
     other = W * 4 + D * 4 + partials
     return {"update_read": upd, "other": other, "total": upd + other,
             "minimum": upd + W * 4 + D * 4}
+
+
+def flops(W: int, D: int) -> int:
+    """Multiply-adds of one K2 call (2 flops each)."""
+    return 2 * W * D

@@ -96,7 +96,8 @@ def trust_score_stats(updates: torch.Tensor):
     """(W, D) float32 or bfloat16 → (dot (W,), sq_u (W,), sq_c ()) float32,
     read in f32 and summed in f32 in a fixed order. On a CUDA tensor this
     launches the kernel (and counts the launch in ``.launches``; W at most
-    MAX_W); on a CPU tensor it returns the plain version."""
+    MAX_W; on a fake tensor the abstract branch, ``_build.abstract``); on a
+    CPU tensor it returns the plain version."""
     _build.check_updates(updates)
     if updates.device.type == "cpu":
         return trust_score_ref(updates)
@@ -111,12 +112,18 @@ def _launch(updates: torch.Tensor, p: Plan):
     and stream (``_build.scratch``)."""
     W, D = updates.shape
     dev = _build.device_of(updates)
-    cnt, part = _build.scratch("trust_score", dev, p.cluster,
-                               2 * p.clusters * W + p.clusters)
+    floats = 2 * p.clusters * W + p.clusters
     f32 = dict(dtype=torch.float32, device=dev)
     dot = torch.empty((W,), **f32)
     sq_u = torch.empty((W,), **f32)
     sq_c = torch.empty((), **f32)
+    if _build.is_fake(updates):
+        _build.abstract("trust_score", updates, flops=flops(W, D),
+                        nbytes=hbm_bytes(W, D, updates.element_size())[
+                            "total"],
+                        scratch=_build.scratch_bytes(p.cluster, floats))
+        return dot, sq_u, sq_c
+    cnt, part = _build.scratch("trust_score", dev, p.cluster, floats)
     _build.launch("repro_trust_score", dev, _build.ptr(updates),
                   int(updates.dtype == torch.bfloat16), W, D, p.cluster,
                   p.strip, p.rows, p.clusters,
@@ -141,3 +148,9 @@ def hbm_bytes(W: int, D: int, itemsize: int) -> dict:
     other = 2 * (2 * G * W + G) * 4 + outputs
     return {"update_read": upd, "other": other, "total": upd + other,
             "minimum": upd + outputs}
+
+
+def flops(W: int, D: int) -> int:
+    """Flops of one K1 call: the consensus (W D adds), dot and sq_u (2 W D
+    each) and sq_c (2 D)."""
+    return 5 * W * D + 2 * D

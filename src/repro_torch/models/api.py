@@ -9,7 +9,8 @@ encoder-decoder (``audio``) branches of ``repro.models.api``.
     forward(params, cfg, batch)                -> (logits, aux)
                                                   [every family but cnn]
     prefill(params, cfg, batch, cache_len)     -> (last_logits, cache)
-    cache_shape(cfg, batch, seq), make_cache(cfg, batch, seq, device)
+    cache_shape(cfg, batch, seq), cache_struct(cfg, batch, seq),
+    make_cache(cfg, batch, seq, device)
     decode_step(params, cfg, cache, tokens, cur_index) -> (logits, cache)
     flat_param_spec, flat_packable, flatten_params, unflatten_params
                                                -> the flat (D,) view
@@ -41,6 +42,7 @@ from repro_torch.kernels import pack
 from repro_torch.models import cnn as CNN
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as TF
 from repro_torch.models import xlstm as XL
 
@@ -107,17 +109,19 @@ def cache_shape(cfg: ModelConfig, batch: int, seq: int):
     return TF.decoder_cache_shape(cfg, batch, seq)
 
 
+def cache_struct(cfg: ModelConfig, batch: int, seq: int):
+    """The decode cache's leaves as a (nested) dict of leaf name → (shape,
+    dtype), the reference's ``api.cache_struct`` (the dry run's input):
+    the recurrent states (``ssm``, and xLSTM's ``c``, ``n``, ``h``, ``m``)
+    in f32, KV and conv leaves in ``cfg.dtype``. One card holds every leaf
+    whole, so the reference's ``cache_spec`` has no twin."""
+    return L.cache_struct(cache_shape(cfg, batch, seq),
+                          getattr(torch, cfg.dtype))
+
+
 def make_cache(cfg: ModelConfig, batch: int, seq: int, device):
-    """Zeroed decode cache: recurrent states (``ssm``, and xLSTM's ``c``,
-    ``n``, ``h``, ``m``) in f32, KV and conv leaves in ``cfg.dtype`` (the
-    reference's ``api.cache_struct``)."""
-    if cfg.family == "hybrid":
-        return HY.make_hybrid_cache(cfg, batch, seq, device)
-    if cfg.family == "ssm":
-        return XL.make_xlstm_cache(cfg, batch, device)
-    if cfg.family == "audio":
-        return ED.make_encdec_cache(cfg, batch, seq, device)
-    return TF.make_decoder_cache(cfg, batch, seq, device)
+    """Zeroed decode cache: zeros of ``cache_struct``."""
+    return L.zeros_of(cache_struct(cfg, batch, seq), device)
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache,

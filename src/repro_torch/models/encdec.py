@@ -207,9 +207,8 @@ def encdec_cache_shape(cfg: ModelConfig, batch: int, seq: int):
 def make_encdec_cache(cfg: ModelConfig, batch: int, seq: int,
                       device) -> Dict[str, Params]:
     """Zeroed decode cache in ``cfg.dtype``."""
-    return {group: {k: torch.zeros(shape, dtype=_dtype(cfg), device=device)
-                    for k, shape in leaves.items()}
-            for group, leaves in encdec_cache_shape(cfg, batch, seq).items()}
+    return L.zeros_of(L.cache_struct(encdec_cache_shape(cfg, batch, seq),
+                                     _dtype(cfg)), device)
 
 
 def encdec_decode_step(params: Params, cfg: ModelConfig, cache,

@@ -208,11 +208,8 @@ def hybrid_cache_shape(cfg: ModelConfig, batch: int, seq: int):
 def make_hybrid_cache(cfg: ModelConfig, batch: int, seq: int, device):
     """Zeroed decode cache: the ``ssm`` states in f32, the conv states and
     the shared K/V in ``cfg.dtype`` (``repro.models.api``'s leaf dtypes)."""
-    return {group: {name: torch.zeros(
-        shape, device=device,
-        dtype=torch.float32 if name == "ssm" else _dtype(cfg))
-        for name, shape in leaves.items()}
-        for group, leaves in hybrid_cache_shape(cfg, batch, seq).items()}
+    return L.zeros_of(L.cache_struct(hybrid_cache_shape(cfg, batch, seq),
+                                     _dtype(cfg)), device)
 
 
 def _mamba_decode(cfg: ModelConfig, lp, x, cache_group: Params, index):

@@ -307,6 +307,27 @@ def gqa_cache_shape(batch: int, seq: int, num_kv_heads: int, head_dim: int):
             "v": (batch, seq, num_kv_heads, head_dim)}
 
 
+# recurrent-state leaves live in f32; KV-style and conv caches in the model
+# dtype (``repro.models.api._F32_LEAVES``)
+F32_CACHE_LEAVES = ("ssm", "c", "n", "h", "m")
+
+
+def cache_struct(shapes, dtype: torch.dtype):
+    """A (nested) dict of cache leaf shapes → the same dict of (shape,
+    dtype): the leaves named in ``F32_CACHE_LEAVES`` in f32, the others in
+    ``dtype``."""
+    return {k: cache_struct(v, dtype) if isinstance(v, dict) else
+            (tuple(v), torch.float32 if k in F32_CACHE_LEAVES else dtype)
+            for k, v in shapes.items()}
+
+
+def zeros_of(struct, device) -> Dict:
+    """Zeros of a (nested) dict of (shape, dtype) leaves."""
+    return {k: zeros_of(v, device) if isinstance(v, dict) else
+            torch.zeros(v[0], dtype=v[1], device=device)
+            for k, v in struct.items()}
+
+
 # ---------------------------------------------------------------------------
 # MLA attention (minicpm3 / DeepSeek-style latent attention)
 # ---------------------------------------------------------------------------

@@ -242,8 +242,8 @@ def decoder_cache_shape(cfg: ModelConfig, batch: int, seq: int):
 def make_decoder_cache(cfg: ModelConfig, batch: int, seq: int,
                        device) -> Params:
     """Zeroed decode cache in ``cfg.dtype``."""
-    return {k: torch.zeros(shape, dtype=_dtype(cfg), device=device)
-            for k, shape in decoder_cache_shape(cfg, batch, seq).items()}
+    return L.zeros_of(L.cache_struct(decoder_cache_shape(cfg, batch, seq),
+                                     _dtype(cfg)), device)
 
 
 def decoder_decode_step(params: Params, cfg: ModelConfig, cache: Params,

@@ -154,11 +154,8 @@ def make_xlstm_cache(cfg: ModelConfig, batch: int, device):
     """Zeroed decode cache: the mLSTM ``ssm`` states and every sLSTM leaf
     in f32, the conv states in ``cfg.dtype`` (``repro.models.api``'s
     ``_F32_LEAVES``)."""
-    return {group: {name: torch.zeros(
-        shape, device=device,
-        dtype=_dtype(cfg) if name == "conv" else torch.float32)
-        for name, shape in leaves.items()}
-        for group, leaves in xlstm_cache_shape(cfg, batch, 0).items()}
+    return L.zeros_of(L.cache_struct(xlstm_cache_shape(cfg, batch, 0),
+                                     _dtype(cfg)), device)
 
 
 def xlstm_decode_step(params: Params, cfg: ModelConfig, cache,

@@ -40,7 +40,7 @@ def test_port_walk_covers_every_package():
     walked = {p.relative_to(port).parts[0] for p in PORT_FILES
               if port in p.parents}
     for pkg in ("serve", "net", "checkpoint", "examples", "core", "chain",
-                "kernels", "models"):
+                "kernels", "models", "launch", "tools"):
         assert pkg in walked
 
 
@@ -92,7 +92,11 @@ def test_protocol_imports_with_jax_and_repro_blocked():
             "repro_torch.examples.poisoning_defense, "
             "repro_torch.examples.decentralized_network, "
             "repro_torch.examples.federated_llm, "
-            "repro_torch.launch.train, repro_torch.configs.registry as R; "
+            "repro_torch.launch.train, repro_torch.launch.dryrun, "
+            "repro_torch.launch.specs, repro_torch.launch.mesh, "
+            "repro_torch.tools.dryrun_projection, "
+            "repro_torch.tools.dryrun_round, "
+            "repro_torch.configs.registry as R; "
             "[R.get_config(a) for a in R.ARCH_IDS + ['paper-net']]; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
