@@ -266,8 +266,9 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
   xlstm_round     xlstm-1.3b at full width cut to one super-layer (D =
                   508,960,796) through ``SDFLBProtocol`` as
                   ``launch/train.py`` builds it (AdamW, remat, no chain),
-                  as ``zamba_round`` but 2 rounds a run: 2 sync rounds at
-                  W = 4 (batch 4, seq 512) and 2 async rounds, the held-out loss falling, only
+                  as ``zamba_round`` but 1 round a run: 1 sync round at
+                  W = 4 (batch 4, seq 512) and 1 async round, the held-out
+                  loss falling, only
                   K4's wide forward and wide backward launching, a bitwise
                   same-seed rerun, the deterministic-algorithms probe, a
                   profiled worker step
@@ -321,21 +322,40 @@ Phases, each printing one JSON line ``{"phase": ..., ...}``:
                   the floor (the weights and the whole K/V cache read once
                   a step), peak memory, four decode steps under
                   torch.profiler; no kernel launches
+  vlm_round       chameleon-34b federated: full width cut to one layer (D =
+                  1,765,826,560 bf16), W = 2 (2 clusters x 1 worker), batch
+                  4 of 256 patches (seeded normal from numpy) and 256 text
+                  tokens, ``SDFLBProtocol`` without the chain, the
+                  TrainConfig ``specs.train_config_for`` gives the full
+                  config (SGD lr 0.01, momentum 0.5, bf16 momentum, remat),
+                  the flat pack: 3 sync rounds (exactly K1 and K2 each), a
+                  bitwise same-seed rerun of the first, 2 async rounds
+                  (exactly K1 and K3 each; each worker sits one out);
+                  every update nonzero (its share that bf16 did not round
+                  away reported), every score finite, the held-out loss not
+                  higher after than before; K1 over each captured pack
+                  against its plain version in column slices, each async
+                  round's new pending buffer against K3's plain version bit
+                  for bit, the settlement decisions from the card's scores
+                  equal to those from the plain statistics'; K1, K2 and K3
+                  at the round's pack timed beside their bounds
   dryrun          the dry run (``repro_torch.launch.dryrun``) held to the
                   card: ``HBM_BYTES`` within 1 % of the card's memory;
                   each kernel case on fake tensors gives its launch's
                   output shapes, dtypes and strides and launches nothing,
                   the wide path's scratch layouts equal the library's;
-                  six steps earlier phases measured (``dryrun_setups``:
+                  eight steps earlier phases measured (``dryrun_setups``:
                   the chameleon prefill and decode, ``llm_round``'s flat
                   sync and async rounds, ``moe_round``'s and
-                  ``xlstm_round``'s first sync round), traced from the
+                  ``xlstm_round``'s first sync round, ``vlm_round``'s
+                  first sync and async rounds), traced from the
                   build on in a niced background process with the card
                   hidden (``--dryrun-traces``; meta tensors), two of them
                   again here on fake CUDA tensors with equal counts; each
                   predicted peak plus what the card held beside the step's
                   arguments within max(5 %, 0.5 GiB) of the step's
-                  ``max_memory_allocated``, each measured wall at least
+                  ``max_memory_allocated`` (``vlm_round``'s within 64
+                  MiB), each measured wall at least
                   its trace's max(compute_s, memory_s), the ratio printed
 The last five, ``dense_serve`` and ``moe_serve`` report the device memory
 held when they start, before and after the cycle collector runs
@@ -354,6 +374,7 @@ under ``wide``), and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
 without the last line; so does a machine without CUDA.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -448,8 +469,9 @@ XSERVE_CUTS = {"num_layers": 8}
 XPARITY_CUTS = {"num_layers": 8}
 XPARITY = dict(batch=2, prompt_len=512, gen=4, seed=3)
 # xlstm_round's sync and async rounds (zamba_round's 3 each; the rounds are
-# ~5.4 s and ~2.8 s, the sLSTM loop on the host, PERF.md section 5)
-XROUNDS = 2
+# ~5.4 s and ~2.8 s, the sLSTM loop on the host, PERF.md section 5): one
+# each, to leave vlm_round room in the script's time limit
+XROUNDS = 1
 # K4's backward at zamba2-7b's training shape (batch 4, seq 512: 4 chunks),
 # the smoke shape, one chunk, a run from an initial state with a nonzero
 # dh_final, and per-head q and k; the tolerance is ssd_scan.BWD_ATOL_REL
@@ -495,15 +517,16 @@ def _peak_row(name):
     raise RuntimeError(f"no published peaks for {name!r}")
 
 
-def time_ms(fn):
-    """Median device time of one call of ``fn`` over REPS calls, from CUDA
-    events around each call. A sleep kernel in front lets the host queue
-    every call before the device starts, so host overhead stays out."""
+def time_ms(fn, reps=REPS):
+    """Median device time of one call of ``fn`` over ``reps`` calls, from
+    CUDA events around each call. A sleep kernel in front lets the host
+    queue every call before the device starts, so host overhead stays
+    out."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
+           torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     torch.cuda._sleep(50_000_000)
     for a, b in ev:
         a.record()
@@ -2782,15 +2805,16 @@ def _llm_run(extra, heldout):
 
 
 def _capture_flat(fn, *args):
-    """Run the round ``fn(*args)`` and keep the (W, D) pack that its
-    flat-pack path hands to K1 (``trust.update_stats_flat``)."""
+    """Run the round ``fn(*args)`` and keep what its flat-pack path hands
+    to K1 (``trust.update_stats_flat``): the (W, D) pack and the losses
+    before and after the step."""
     from repro_torch.core import trust
     seen = []
     orig = trust.update_stats_flat
 
-    def spy(upd, *rest):
-        seen.append(upd)
-        return orig(upd, *rest)
+    def spy(*stats_args):
+        seen.append(stats_args)
+        return orig(*stats_args)
     trust.update_stats_flat = spy
     try:
         out = fn(*args)
@@ -2829,29 +2853,42 @@ def _stats_check(upd, spec, losses):
 
 
 def _kernel_row(name, fn, plain, args, nbytes, flops, bw, f32_peak,
-                floor=1.0, checks=None, library=None):
-    """One kernel at the LLM round's shape: error against its plain
-    version, each output held to RTOL of its largest plain value (at least
+                floor=1.0, checks=None, library=None, cols=None, reps=REPS):
+    """One kernel at a round's shape: error against its plain version,
+    each output held to RTOL of its largest plain value (at least
     ``floor``), times and bound, and the time of ``library``, one PyTorch
     call computing the same, where given; ``checks(args, want, floor)``
-    adds its own fields."""
+    adds its own fields (without ``cols``). With ``cols``, the plain
+    version runs on slices
+    of that many columns of the 2-D arguments against the same columns of
+    each output (K2 and K3, whose output columns read their own columns
+    alone), where the whole plain version and the kernel's outputs do not
+    fit the card together; ``reps`` timed calls each (``time_ms``)."""
     got = fn(*args)
-    torch.cuda.synchronize()
-    want = plain(*args)
     got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    errs = [float((g - e).abs().max()) for g, e in zip(got, want)]
-    check(all(d <= RTOL * max(floor, float(e.abs().max()))
-              for d, e in zip(errs, want)), f"{name} at the LLM shape: "
-          f"{errs}")
+    torch.cuda.synchronize()
+    errs, tops = [0.0] * len(got), [0.0] * len(got)
+    D = args[0].shape[1]
+    for a in range(0, D, cols or D):
+        sl = slice(a, a + (cols or D))
+        want = plain(*[x[:, sl] if cols and x.ndim == 2 else x
+                       for x in args])
+        want = want if isinstance(want, tuple) else (want,)
+        for i, (g, e) in enumerate(zip(got, want)):
+            errs[i] = max(errs[i], float((g[..., sl] - e).abs().max())
+                          if cols else float((g - e).abs().max()))
+            tops[i] = max(tops[i], float(e.abs().max()))
+    check(all(d <= RTOL * max(floor, t) for d, t in zip(errs, tops)),
+          f"{name} at its round's shape: {errs} against {tops}")
     del got
     extra = checks(args, want, floor) if checks else {}
     del want
     t_bytes, t_ops = nbytes / bw * 1e3, flops / f32_peak * 1e3
-    return {"max_abs_err": max(errs), "ms": time_ms(lambda: fn(*args)),
-            "plain_ms": time_ms(lambda: plain(*args)),
-            "library_ms": (time_ms(lambda: library(*args)) if library
-                           else None),
+    return {"max_abs_err": max(errs), "plain_max": tops,
+            "ms": time_ms(lambda: fn(*args), reps),
+            "plain_ms": time_ms(lambda: plain(*args), reps),
+            "library_ms": (time_ms(lambda: library(*args), reps) if library
+                           else None), "reps": reps,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             **extra}
@@ -2983,7 +3020,7 @@ def phase_llm_round(name):
     del leaf
     step = _step_begin([gp, opt, batch])
     t0 = time.monotonic()
-    flat, upd = _capture_flat(flat_fn, gp, opt, batch)
+    flat, (upd, _, _) = _capture_flat(flat_fn, gp, opt, batch)
     torch.cuda.synchronize()
     flat_s = time.monotonic() - t0
     window_max = _step_end("llm_flat_sync", step)
@@ -3043,8 +3080,8 @@ def phase_llm_round(name):
     task.async_state = None
     step = _step_begin([gp, opt, batch, part, flat_st])
     t0 = time.monotonic()
-    (flat, flat_new), upd = _capture_flat(flat_fn, gp, opt, batch, None,
-                                          part, flat_st)
+    (flat, flat_new), (upd, _, _) = _capture_flat(
+        flat_fn, gp, opt, batch, None, part, flat_st)
     torch.cuda.synchronize()
     flat_s = time.monotonic() - t0
     _step_end("llm_flat_async", step)
@@ -3292,8 +3329,8 @@ def phase_moe_parity():
         rec = {}
         cfg32 = get_config(arch).replace(dtype="float32", num_layers=2)
         t0 = time.monotonic()
-        p32 = api.init(cfg32, torch.Generator().manual_seed(3), cpu_dev)
-        rec["cpu_init_s"] = time.monotonic() - t0
+        p32 = _drawn_on_card(cfg32, 3)
+        rec["init_s"] = time.monotonic() - t0
         # a bf16 init is the f32 one rounded (dense_init draws in f32), the
         # router and shared gate kept in f32: the smoke config's dtypes
         dts = {k: v.dtype for k, v in api.init(
@@ -3547,8 +3584,8 @@ def phase_xlstm_parity():
            "mlstm_blocks": n_m * n_super, "slstm_blocks": n_super,
            **XPARITY, "tol": PARITY_TOL}
     t0 = time.monotonic()
-    p32 = api.init(cfg32, torch.Generator().manual_seed(3), cpu_dev)
-    out["cpu_init_s"] = time.monotonic() - t0
+    p32 = _drawn_on_card(cfg32, 3)
+    out["init_s"] = time.monotonic() - t0
     dts = {k: v.dtype for k, v in api.init(
         get_smoke_config(XLSTM), torch.Generator().manual_seed(0),
         cpu_dev).items()}
@@ -4584,6 +4621,334 @@ def phase_vlm_serve(name):
     emit(out)
 
 
+# chameleon-34b federated on one card: full width cut to one layer, W = 2
+# (2 clusters x 1 worker), 4 sequences a worker of 256 patches and 256 text
+# tokens, the economics ``specs.train_config_for`` gives the full config
+# (SGD, lr 0.01, momentum 0.5, bf16 momentum, remat, no clip), the flat pack
+VLM_ROUND = dict(workers=2, clusters=2, batch=4, text=256, sync_rounds=3,
+                 async_rounds=2)
+VLM_ROUND_D = 1_765_826_560
+VLM_ROUND_MASKS = [[1, 0], [0, 1]]    # async: one takes part, the other's
+                                      # update waits in its pending row
+VLM_ROUND_PATCH_SEED = 600
+VLM_ROUND_COLS = 1 << 28              # columns a plain check takes at once
+VLM_ROUND_PEAK_TOL = 64 * 2**20       # its dry run's peaks, against the card
+VLM_ROUND_REPS = 10                   # timed calls a kernel (K1 ~0.18 s)
+
+
+def _vlm_round_fed(async_mode):
+    from repro_torch.configs.base import FederationConfig
+    return FederationConfig(num_clusters=VLM_ROUND["clusters"],
+                            workers_per_cluster=VLM_ROUND["workers"]
+                            // VLM_ROUND["clusters"], async_mode=async_mode,
+                            trust_threshold=0.3, mode="allreduce",
+                            fused_trust_path="on")
+
+
+def _vlm_round_setup():
+    """(the config, the TrainConfig) of the round: the reference's rule
+    read on the full config (the cut one would give f32 state)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import specs
+    return (get_config(VLM).replace(**VLM_CUTS),
+            specs.train_config_for(get_config(VLM)))
+
+
+def _vlm_round_data(cfg, r):
+    """Round r's batch: each worker's token streams at twice the text
+    length (the second half of round 0's is the held-out set) and its
+    (B, P, d) patch embeddings, seeded normal f32 from numpy."""
+    from repro_torch.data.datasets import synthetic_tokens
+    W, B, S = (VLM_ROUND[k] for k in ("workers", "batch", "text"))
+    streams = synthetic_tokens(W, B, 2 * S, cfg.vocab_size, seed=r)
+    patches = np.random.default_rng(VLM_ROUND_PATCH_SEED + r).standard_normal(
+        (W, B, cfg.num_patch_tokens, cfg.d_model), dtype=np.float32)
+    data = {k: np.ascontiguousarray(v[..., :S]) for k, v in streams.items()}
+    data["patch_embeds"] = patches
+    heldout = {k: v[..., S:].reshape(W * B, S) for k, v in streams.items()}
+    heldout["patch_embeds"] = patches.reshape((W * B,) + patches.shape[2:])
+    return data, heldout
+
+
+def _plain_stats(upd):
+    """K1's plain version on the card's pack, in column slices of
+    VLM_ROUND_COLS (its f32 upcast of the whole pack would not fit beside
+    the round): (dot, sq_u, sq_c), each a sum over the slices."""
+    from repro_torch.kernels import trust_score
+    out = None
+    for a in range(0, upd.shape[1], VLM_ROUND_COLS):
+        part = trust_score.trust_score_ref(upd[:, a:a + VLM_ROUND_COLS])
+        out = part if out is None else tuple(x + y for x, y in
+                                             zip(out, part))
+    return out
+
+
+def _vlm_round_checks(fed, scores, upd, loss_before, loss_after):
+    """After a round: K1 launched again over the captured pack against its
+    plain version (RTOL of the largest plain value, at least 1, as
+    ``_kernel_row``), the scores that the plain statistics give, and the
+    share of each worker's update that bf16 did not round away."""
+    from repro_torch.core import trust
+    from repro_torch.kernels import trust_score
+    got = trust_score.trust_score_stats(upd)
+    want = _plain_stats(upd)
+    errs = [float((g - e).abs().max()) for g, e in zip(got, want)]
+    tops = [float(e.abs().max()) for e in want]
+    check(all(d <= RTOL * max(1.0, t) for d, t in zip(errs, tops)),
+          f"vlm_round: K1 against its plain version {errs} of {tops}")
+    plain = trust.scores_from_stats(trust.TrustStats(
+        *want, loss_before - loss_after), fed).cpu().numpy()
+    nonzero = [int(torch.count_nonzero(upd[w])) / upd.shape[1]
+               for w in range(upd.shape[0])]
+    return {"k1_errs": errs, "k1_plain_max": tops,
+            "plain_scores": plain.tolist(),
+            "score_diff": float(np.abs(plain - scores).max()),
+            "sq_u": want[1].tolist(),
+            "nonzero_share": nonzero}
+
+
+def _vlm_rounds(cfg, tc, async_mode, rounds, key=None, keep_first=False,
+                keep_last=False):
+    """``rounds`` rounds of SDFLBProtocol (no chain) over the VLM round on
+    the card: each round's wall and tokens/s (patches and text), exactly
+    K1 with K2 (sync) or K3 (async) and no other kernel, finite scores
+    and losses, ``_vlm_round_checks``; async, each round's new pending
+    buffer against K3's plain version on the captured pack and the
+    pending buffer the round read, bit for bit. Round 0's step is kept for
+    the dry run as ``key``, where given. The held-out loss before (the
+    seeded init) and after must not rise. Returns (the record, with
+    ``keep_first`` round 0's global params on the card (3.5 GB: the async
+    rounds have no room for them), the card's and the plain scores of each
+    round, and with ``keep_last`` the last round's captured pack, its
+    weights, its losses and in async the pending buffer it read, its mask
+    and its new pending buffer)."""
+    from repro_torch.core.protocol import SDFLBProtocol
+    from repro_torch.kernels import fused_round
+    dev = torch.device("cuda")
+    fed = _vlm_round_fed(async_mode)
+    W = VLM_ROUND["workers"]
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    proto = SDFLBProtocol(cfg, fed, tc, use_blockchain=False, seed=0,
+                          device=dev)
+    rec = {"init_s": time.monotonic() - t0, "round_wall_s": [],
+           "tokens_per_s": [], "launches": [], "mean_loss": [],
+           "scores": [], "weights": [], "checks": []}
+    _, heldout = _vlm_round_data(cfg, 0)
+    before = _heldout_loss(cfg, proto.global_params, heldout, dev)
+    tokens = W * VLM_ROUND["batch"] * (cfg.num_patch_tokens
+                                       + VLM_ROUND["text"])
+    first, card, plain, last = None, [], [], None
+    for r in range(rounds):
+        data, _ = _vlm_round_data(cfg, r)
+        part = (np.array(VLM_ROUND_MASKS[r], np.int32) if async_mode
+                else None)
+        task = proto.task
+        read = task.async_state.pending if async_mode else None
+        reset_counts()
+        if r == 0:
+            step = _step_begin([task.global_params, task.opt_state]
+                               + ([task.async_state] if async_mode else []))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out, (upd, lb, la) = _capture_flat(proto.run_round, data, part)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        if r == 0:
+            window_max = _step_end(key, step) if key else max(
+                step["max_before"], torch.cuda.max_memory_allocated())
+        counts = read_counts()
+        _expect(f"vlm_round {key} round {r}", counts,
+                _trust_launches(0, 1) if async_mode
+                else _trust_launches(1, 0))
+        check(np.isfinite(out.scores).all() and np.isfinite(out.losses).all(),
+              f"vlm_round: scores {out.scores}, losses {out.losses}")
+        checks = _vlm_round_checks(fed, out.scores, upd, lb, la)
+        check(all(x > 0 for x in checks["nonzero_share"]),
+              f"vlm_round: an update rounded to zero: {checks}")
+        if async_mode:
+            new = task.async_state.pending
+            keep = 1.0 - torch.from_numpy(part).to(dev).float()
+            w = torch.from_numpy(np.asarray(out.weights, np.float32)).to(dev)
+            same = all(torch.equal(new[:, a:a + VLM_ROUND_COLS],
+                                   fused_round.fused_async_agg_ref(
+                                       upd[:, a:a + VLM_ROUND_COLS],
+                                       read[:, a:a + VLM_ROUND_COLS], w,
+                                       keep)[1])
+                       for a in range(0, upd.shape[1], VLM_ROUND_COLS))
+            check(same, f"vlm_round: round {r}'s new pending buffer is not "
+                  f"K3's plain version's")
+            checks["pending_equal_plain"] = same
+            checks["pending_rows_nonzero"] = [
+                bool(new[i].any()) for i in range(W)]
+        rec["round_wall_s"].append(wall)
+        rec["tokens_per_s"].append(tokens / wall)
+        rec["launches"].append(counts)
+        rec["mean_loss"].append(float(np.mean(out.losses)))
+        rec["scores"].append(np.asarray(out.scores).tolist())
+        rec["weights"].append(np.asarray(out.weights).tolist())
+        rec["checks"].append(checks)
+        card.append(np.asarray(out.scores, np.float64))
+        plain.append(np.asarray(checks["plain_scores"], np.float64))
+        if keep_first and r == 0:
+            first = {k: v.clone() for k, v in proto.global_params.items()}
+        if keep_last and r == rounds - 1:
+            w = torch.from_numpy(np.asarray(out.weights, np.float32)).to(dev)
+            last = (upd, w, lb, la)
+            if async_mode:
+                last += (read, keep, new)
+        del upd, lb, la, read
+    rec["round0_max_memory_allocated"] = window_max
+    rec["max_memory_allocated"] = max(window_max,
+                                      torch.cuda.max_memory_allocated())
+    after = _heldout_loss(cfg, proto.global_params, heldout, dev)
+    rec["heldout_loss"] = [before, after]
+    rec["heldout_loss_fell"] = after < before
+    check(all(torch.isfinite(v).all() for v in proto.global_params.values()))
+    check(after <= before, f"vlm_round: held-out loss {before} -> {after}")
+    proto.finalize()
+    del proto, task
+    _release()
+    return rec, first, card, plain, last
+
+
+@contextlib.contextmanager
+def _expandable_segments():
+    """The caching allocator with expandable segments while the block
+    runs (cached blocks released before and after). The async VLM round
+    peaks at ~81 GB of the card's 85.0: with fixed segments, blocks split
+    off the round's 14 GB pending buffers left ~4 GiB reserved but
+    unusable for its 2 GiB f32 leaves, and it ran out of memory (NVIDIA
+    H100 80GB HBM3, PERF.md section 6); expandable segments map the pages
+    of freed blocks where the next block needs them."""
+    set_settings = getattr(torch._C, "_accelerator_setAllocatorSettings",
+                           None) or torch.cuda.memory._set_allocator_settings
+    _release()
+    set_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        _release()
+        set_settings("expandable_segments:False")
+
+
+def phase_vlm_round(name):
+    """chameleon-34b federated on the card: full width cut to one layer
+    (D = 1,765,826,560), W = 2 (``VLM_ROUND``), SDFLBProtocol as
+    launch/train.py builds it without the chain, the TrainConfig that
+    ``specs.train_config_for`` gives the full config (SGD with bf16
+    momentum), the flat pack (``_vlm_rounds``): 3 sync rounds, a same-seed
+    rerun of the first (global params and scores bit for bit), 2 async
+    rounds (``VLM_ROUND_MASKS``). Starts with at most VLM_HELD_MAX held.
+    Then, from the last sync round's pack, K1 (against its plain version
+    and the per-leaf statistics, ``_stats_check``) and K2, and from the
+    last async round's, K3 (checked in column slices; its new pending also
+    against the round's), each timed beside its bound (``_kernel_row``);
+    the settlement decisions from the card's scores against those from the
+    plain statistics' (``_settle_decisions``). Returns the rounds'
+    launches."""
+    from repro_torch.kernels import fused_round, pack, trust_agg, \
+        trust_score
+    before, held = _held_after_release()
+    free, total = torch.cuda.mem_get_info()
+    cfg, tc = _vlm_round_setup()
+    W = VLM_ROUND["workers"]
+    out = {"phase": "vlm_round", "arch": VLM, "cuts": VLM_CUTS, **VLM_ROUND,
+           "patch_tokens": cfg.num_patch_tokens, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "train_config": dataclasses.asdict(tc),
+           "fused_trust_path": "on", "chain": False,
+           "async_masks": VLM_ROUND_MASKS,
+           "memory_before_release": before, "memory_held_at_start": held,
+           "device_free_at_start": free, "device_total": total}
+    check(held <= VLM_HELD_MAX, f"vlm_round: {held} B still allocated")
+    check(tc.optimizer == "sgd" and tc.opt_dtype == "bfloat16",
+          f"vlm_round: {tc}")
+    bw, f32_peak = peaks(name)
+
+    out["sync"], first, card_s, plain_s, last = _vlm_rounds(
+        cfg, tc, False, VLM_ROUND["sync_rounds"], "vlm_round_sync",
+        keep_first=True, keep_last=True)
+    upd, w, lb, la = last
+    D = upd.shape[1]
+    check(D == VLM_ROUND_D, f"vlm_round: D = {D}")
+    spec = pack.pack_spec(first)
+    out["D"] = D
+    out["param_bytes"] = D * upd.element_size()
+    out["stats"] = _stats_check(upd, spec, la)
+    kernels = {"trust_score": _kernel_row(
+        "trust_score", trust_score.trust_score_stats,
+        trust_score.trust_score_ref, (upd,),
+        trust_score.hbm_bytes(W, D, 2)["minimum"],
+        trust_score.flops(W, D), bw, f32_peak, reps=VLM_ROUND_REPS)}
+    kernels["trust_score"]["plan"] = trust_score.plan(W, D, 2)._asdict()
+    kernels["trust_agg"] = _kernel_row(
+        "trust_agg", trust_agg.trust_agg, trust_agg.trust_agg_ref, (upd, w),
+        trust_agg.hbm_bytes(W, D, 2)["minimum"], trust_agg.flops(W, D), bw,
+        f32_peak, library=lambda u, w: torch.mv(u.t(), w.to(u.dtype)),
+        reps=VLM_ROUND_REPS)
+    kernels["trust_agg"]["plan"] = trust_agg.plan(W, D, 2)._asdict()
+    del upd, w, lb, la, last
+    _release()
+
+    # a same-seed rerun of the first sync round
+    out["rerun"], again, *_ = _vlm_rounds(cfg, tc, False, 1,
+                                          keep_first=True)
+    identical = all(torch.equal(first[k], again[k]) for k in first) and \
+        out["rerun"]["scores"][0] == out["sync"]["scores"][0]
+    check(identical, "vlm_round: same-seed rounds differ")
+    out["rerun"]["identical_params_and_scores"] = identical
+    del first, again
+    _release()
+
+    with _expandable_segments():
+        out["async"], _, card_a, plain_a, last = _vlm_rounds(
+            cfg, tc, True, VLM_ROUND["async_rounds"], "vlm_round_async",
+            keep_last=True)
+        out["async"]["expandable_segments"] = any(
+            seg.get("is_expandable") for seg in torch.cuda.memory_snapshot())
+        upd, w, lb, la, read, keep, new = last
+        del last
+        got = fused_round.fused_async_agg(upd, read, w, keep)
+        out["async"]["k3_new_pending_equals_round"] = torch.equal(got[1],
+                                                                  new)
+        check(out["async"]["k3_new_pending_equals_round"],
+              "vlm_round: K3 again gives another new pending buffer")
+        del got, new
+        _release()
+        kernels["fused_async_agg"] = _kernel_row(
+            "fused_async_agg", fused_round.fused_async_agg,
+            fused_round.fused_async_agg_ref, (upd, read, w, keep),
+            fused_round.hbm_bytes(W, D, 2)["minimum"],
+            fused_round.flops(W, D), bw, f32_peak, floor=0.0,
+            cols=VLM_ROUND_COLS, reps=VLM_ROUND_REPS)
+        kernels["fused_async_agg"]["plan"] = fused_round.plan(
+            W, D, 2)._asdict()
+        del upd, w, lb, la, read, keep
+    out["kernels_at_vlm_shape"] = kernels
+
+    decisions = {}
+    for mode, card, plain in (("sync", card_s, plain_s),
+                              ("async", card_a, plain_a)):
+        fed = _vlm_round_fed(mode == "async")
+        a, b = (_settle_decisions(fed, card, W),
+                _settle_decisions(fed, plain, W))
+        # how far the card's scores lie from the threshold, beside how far
+        # they lie from the plain statistics' scores
+        decisions[mode] = {
+            "equal": a == b, "card": a,
+            "threshold_margin": float(np.abs(np.array(card)
+                                             - fed.trust_threshold).min()),
+            "score_diff": float(np.abs(np.array(card)
+                                       - np.array(plain)).max())}
+        check(a == b, f"vlm_round {mode}: decisions {a} against {b}")
+    out["decisions"] = decisions
+    out["launches"] = {k: sum(c[k] for run in ("sync", "rerun", "async")
+                              for c in out[run]["launches"])
+                       for k in counters()}
+    emit(out)
+    return out["launches"]
+
+
 # -- the dry run held against the card -----------------------------------
 
 # a predicted peak (the trace's, plus what the card held beside the step's
@@ -4634,10 +4999,12 @@ def dryrun_setups():
     them: {key: (arch, registry shape, setup_override)}. ``vlm_serve``'s
     chameleon-34b prefill and warm decode (batch 4, 256 patches and a
     1792-token prompt, 2080 cache slots), ``llm_round``'s flat-pack sync
-    and async rounds (smollm-135m, W = 8: K1 with K2, K1 with K3) and the
+    and async rounds (smollm-135m, W = 8: K1 with K2, K1 with K3), the
     first sync round of ``moe_round`` (olmoe-1b-7b, one layer) and of
     ``xlstm_round`` (xlstm-1.3b, one super-layer: K4's wide path and its
-    backward)."""
+    backward), and the first sync and async rounds of ``vlm_round``
+    (chameleon-34b, one layer, W = 2, SGD with bf16 momentum, the flat
+    pack; the patches f32, as the protocol takes them from numpy)."""
     from repro_torch.configs.base import FederationConfig, ShapeConfig, \
         TrainConfig
     from repro_torch.configs.registry import get_config
@@ -4647,10 +5014,26 @@ def dryrun_setups():
     Pt = vlm.num_patch_tokens
     tc = TrainConfig(optimizer="adamw", lr=3e-4, remat=True, grad_clip=1.0)
 
-    def round_setup(arch, cfg, fed, shape):
+    def round_setup(arch, cfg, fed, shape, tc=tc):
         return (arch, "train_4k", lambda a, s, mesh, _, **kw:
                 specs.train_setup(a, s, mesh, fed, cfg=cfg, tc=tc,
                                   shape=shape))
+
+    vcfg, vtc = _vlm_round_setup()
+    vshape = ShapeConfig("vlm_round", Pt + VLM_ROUND["text"],
+                         VLM_ROUND["workers"] * VLM_ROUND["batch"], "train")
+
+    def vlm_round_setup(async_mode):
+        def setup(a, s, mesh, _, **kw):
+            step = specs.train_setup(a, s, mesh, _vlm_round_fed(async_mode),
+                                     cfg=vcfg, tc=vtc, shape=vshape)
+            batch = dict(step.args[2])
+            batch["patch_embeds"] = torch.empty(
+                batch["patch_embeds"].shape, dtype=torch.float32,
+                device=specs.DEVICE)
+            return step._replace(args=step.args[:2] + (batch,)
+                                 + step.args[3:])
+        return VLM, "train_4k", setup
 
     def llm_fed(async_mode):
         return FederationConfig(num_clusters=2, workers_per_cluster=4,
@@ -4684,6 +5067,8 @@ def dryrun_setups():
             zshape),
         "xlstm_round_sync": round_setup(
             XLSTM, get_config(XLSTM).replace(**XPARITY_CUTS), zfed, zshape),
+        "vlm_round_sync": vlm_round_setup(False),
+        "vlm_round_async": vlm_round_setup(True),
     }
 
 
@@ -4878,7 +5263,8 @@ def phase_dryrun(name, child):
         held = m["allocated_before"] - m["args_bytes"]
         predicted = r["peak_bytes"] + held
         measured = m["max_memory_allocated"]
-        tol = max(DRYRUN_PEAK_REL * measured, DRYRUN_PEAK_ABS)
+        tol = (VLM_ROUND_PEAK_TOL if key.startswith("vlm_round") else
+               max(DRYRUN_PEAK_REL * measured, DRYRUN_PEAK_ABS))
         bound = max(r["compute_s"], r["memory_s"])
         steps[key] = {
             "predicted_peak": predicted, "measured_peak": measured,
@@ -4978,6 +5364,7 @@ def main():
     run("whisper_serve", phase_whisper_serve, name)
     run("whisper_round", phase_whisper_round, name)
     run("vlm_serve", phase_vlm_serve, name)
+    new_paths.append(run("vlm_round", phase_vlm_round, name))
     run("dryrun", phase_dryrun, name, dry_child)
     for counts in new_paths:
         for k in ("trust_score", "trust_agg", "fused_async_agg"):

@@ -260,6 +260,50 @@ def test_kernels_are_bitwise_deterministic_on_card(cuda):
             assert torch.equal(x, y)
 
 
+# few rows and W·D past 2^31 elements, the class of chameleon-34b's round
+# pack (2, 1,765,826,560) bf16: D = 2^30 + 128, W·D = 2^31 + 256
+BIG_PACK = (2, 1_073_741_952)
+
+
+@pytest.mark.cuda
+def test_trust_kernels_past_2_31_elements_on_card(cuda):
+    """K1, K2 and K3 over a (2, 1,073,741,952) bf16 pack (4.3 GB), made on
+    the card, against their plain versions: each output within 1e-4 of its
+    largest plain value (at least 1), K3's new pending bit for bit; one
+    launch each. K1's plan walks 8,388,609 strips of 128 columns in 132
+    single-block clusters; K2 and K3 take 4,194,305 column tiles."""
+    W, D = BIG_PACK
+    gen = torch.Generator(device=cuda).manual_seed(W + D)
+    u = torch.randn((W, D), generator=gen, device=cuda).to(torch.bfloat16)
+    pending = torch.randn((W, D), generator=gen, device=cuda)
+    weights = torch.tensor([0.75, 0.25], device=cuda)
+    keep = torch.tensor([0.0, 1.0], device=cuda)
+    assert trust_score.plan(W, D, 2) == trust_score.Plan(
+        1, 256, 128, 2, 132, 8_388_609)
+    assert trust_agg.plan(W, D, 2).tiles == 4_194_305
+    assert fused_round.plan(W, D, 2).tiles == 4_194_305
+    cases = [(trust_score.trust_score_stats, ref.trust_score_ref, (u,)),
+             (trust_agg.trust_agg, ref.trust_agg_ref, (u, weights)),
+             (fused_round.fused_async_agg, ref.fused_async_agg_ref,
+              (u, pending, weights, keep))]
+    for kernel, plain, args in cases:
+        before = kernel.launches
+        got = kernel(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = plain(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, e in zip(got, want):
+            assert g.shape == e.shape and g.dtype == torch.float32
+            tol = 1e-4 * max(1.0, float(e.abs().max()))
+            assert float((g - e).abs().max()) <= tol
+        if kernel is fused_round.fused_async_agg:
+            assert torch.equal(got[1], want[1])
+        del got, want
+        torch.cuda.empty_cache()
+
+
 # K5 against swa_decode_ref: (B, H, KV, hd, S, window, cur), ragged and at
 # danube's decode shape (H 32, KV 8, hd 80, window 4096); S is no multiple
 # of a tile, cur runs below, at and past the window, G is 1, 4, 5 and 8,
